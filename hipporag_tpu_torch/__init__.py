@@ -1,0 +1,33 @@
+"""hipporag_tpu_torch — the HippoRAG retrieval system on PyTorch and CUDA.
+
+A port of ``hipporag_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA GPU,
+module for module: ``hipporag_tpu_torch/ops/pagerank.py`` is the
+counterpart of ``hipporag_tpu/ops/pagerank.py``, and so on. The device
+code is torch plus hand-written CUDA kernels (``csrc/``); it never imports
+JAX. Host components without JAX (config, LLMs, embedders, stores, OpenIE,
+prompts, the rerank filter, dataset loading) are reused from
+``hipporag_tpu`` and re-exported here, so callers name only this package.
+"""
+
+from hipporag_tpu.config import BaseConfig
+from hipporag_tpu.datasets import load_dataset
+from hipporag_tpu.utils.misc import Chunk, QuerySolution, RetrievalResult, compute_mdhash_id
+
+__all__ = [
+    "BaseConfig",
+    "Chunk",
+    "HippoRAG",
+    "QuerySolution",
+    "RetrievalResult",
+    "compute_mdhash_id",
+    "load_dataset",
+]
+
+
+def __getattr__(name):
+    # lazy: `import hipporag_tpu_torch` stays light until the orchestrator is used
+    if name == "HippoRAG":
+        from .hipporag import HippoRAG
+
+        return HippoRAG
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,122 @@
+"""Batched dense scoring (PyTorch port of ``hipporag_tpu/ops/scoring.py``).
+
+Query-by-key similarity matrices in float32 at full precision, row-wise
+min-max normalization over the valid columns, and top-k with the tie order
+of ``lax.top_k`` (the lower index first). ``fact_topk`` routes to the
+streamed fused kernel (``ops/fused_topk.py``) on CUDA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def topk_lower_index(x: torch.Tensor, k: int):
+    """Per-row top-k (values, indices) along the last axis, ties to the lower index.
+
+    ``torch.topk`` promises no order among equal values; a stable descending
+    sort keeps equal values in index order, which is what ``lax.top_k``
+    returns and what ``link_top_k`` and the document ranking rely on.
+    """
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def min_max_normalize(scores: torch.Tensor, where: torch.Tensor | None = None) -> torch.Tensor:
+    """Row-wise min-max scaling to [0, 1]; constant rows map to all-ones.
+
+    ``where`` optionally masks out padded columns (they return 0).
+    """
+    if where is not None:
+        lo = torch.where(where, scores, torch.inf).amin(-1, keepdim=True)
+        hi = torch.where(where, scores, -torch.inf).amax(-1, keepdim=True)
+    else:
+        lo = scores.amin(-1, keepdim=True)
+        hi = scores.amax(-1, keepdim=True)
+    rng = hi - lo
+    out = torch.where(
+        rng == 0, torch.ones_like(scores), (scores - lo) / torch.where(rng == 0, 1.0, rng)
+    )
+    if where is not None:
+        out = torch.where(where, out, 0.0)
+    return out
+
+
+def batched_scores(
+    queries: torch.Tensor, keys: torch.Tensor, compute_dtype: str = "float32"
+) -> torch.Tensor:
+    """[B, D] x [N, D] -> [B, N] float32 similarity scores.
+
+    ``compute_dtype="bfloat16"`` rounds both operands to bfloat16 and
+    accumulates in float32, as the reference's bf16 dot with a float32
+    result type does. The float32 product runs in full float32: the port
+    never enables TF32.
+    """
+    if compute_dtype == "bfloat16":
+        queries = queries.to(torch.bfloat16)
+        keys = keys.to(torch.bfloat16)
+    elif compute_dtype != "float32":
+        raise ValueError(f"unsupported compute_dtype {compute_dtype!r}")
+    return queries.float() @ keys.float().T
+
+
+def _valid_columns(n: int, valid_n, device) -> torch.Tensor:
+    return (torch.arange(n, device=device) < int(valid_n))[None, :]
+
+
+def batched_normalized_scores(
+    queries: torch.Tensor, keys: torch.Tensor, valid_n, compute_dtype: str = "float32"
+) -> torch.Tensor:
+    """Scores + per-row min-max normalization over the first ``valid_n`` keys
+    (keys beyond it are padding and score 0)."""
+    raw = batched_scores(queries, keys, compute_dtype)
+    return min_max_normalize(raw, where=_valid_columns(raw.shape[1], valid_n, raw.device))
+
+
+def batched_topk(scores: torch.Tensor, k: int):
+    """Per-row top-k (values, indices) of a [B, N] score matrix."""
+    return topk_lower_index(scores, k)
+
+
+def score_and_topk(
+    queries: torch.Tensor, keys: torch.Tensor, valid_n, k: int, compute_dtype: str = "float32"
+):
+    """Normalized scoring + top-k: (scores [B, N], values [B, k], indices [B, k])."""
+    scores = batched_normalized_scores(queries, keys, valid_n, compute_dtype)
+    values, indices = topk_lower_index(scores, k)
+    return scores, values, indices
+
+
+def fused_topk_route(b: int, n: int, device) -> bool:
+    """Routing decision for :func:`fact_topk`: True -> the fused CUDA kernel.
+
+    Every CUDA call takes the kernel; the CPU takes the plain matmul + top-k.
+    ``b`` and ``n`` are the [B, N] score shape, kept in the signature so a
+    size threshold measured on the GPU can be added without touching callers.
+    """
+    del b, n
+    return torch.device(device).type == "cuda"
+
+
+def fact_topk(
+    queries: torch.Tensor,
+    keys: torch.Tensor,
+    valid_n,
+    k: int,
+    compute_dtype: str = "float32",
+    use_fused: bool | None = None,
+):
+    """Top-k normalized fact scores: (norm_vals [B, k], idx [B, k]).
+
+    ``use_fused=None`` routes by :func:`fused_topk_route`; ``False`` pins the
+    plain path. Padded/absent keys yield norm value 0.
+    """
+    if use_fused is None:
+        use_fused = fused_topk_route(queries.shape[0], keys.shape[0], queries.device)
+    if use_fused:
+        from .fused_topk import fused_score_topk
+
+        norm, _raw, idx = fused_score_topk(queries, keys, valid_n, k)
+        return norm, idx
+    _scores, values, indices = score_and_topk(queries, keys, valid_n, k, compute_dtype)
+    return values, indices

@@ -1,0 +1,127 @@
+"""End to end: the PyTorch port's index -> retrieve -> rag_qa against the JAX package.
+
+Both packages index ``data/sample_corpus.json`` with the mock LLM and mock
+embedder on the CPU and answer the queries of ``data/sample.json``. The
+ranked passages must be identical and EM/F1 equal. The same run of the JAX
+package is recorded in ``tests/fixtures/torch_port_sample_expected.json``,
+which ``chip_smoke.py`` holds the port to on the GPU; a test here
+regenerates it so it cannot go stale. A subprocess with jax, pandas,
+pyarrow, httpx and filelock blocked shows the port runs without them.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import hipporag_tpu
+import hipporag_tpu_torch
+from hipporag_tpu.datasets import load_dataset
+from hipporag_tpu.utils.misc import compute_mdhash_id
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_sample_expected.json")
+BLOCKED = ("jax", "jaxlib", "pandas", "pyarrow", "httpx", "filelock")
+
+
+def _config(save_dir):
+    return hipporag_tpu.BaseConfig(
+        llm_name="mock", embedding_model_name="mock", vector_store_type="memory",
+        save_dir=str(save_dir),
+    )
+
+
+def _run(rag):
+    docs, queries, gold_docs, gold_answers = load_dataset("sample", os.path.join(ROOT, "data"))
+    rag.index(docs)
+    retrieved = rag.retrieve(queries)
+    return retrieved, rag.rag_qa(queries, gold_docs=gold_docs, gold_answers=gold_answers)
+
+
+def _expected(solutions):
+    """The fixture's form of a run: ranked passage ids and the answer per query."""
+    return [
+        {
+            "question": s.question,
+            "ranked_passage_ids": [compute_mdhash_id(d, "chunk-") for d in s.docs],
+            "answer": s.answer,
+        }
+        for s in solutions
+    ]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    ref = _run(hipporag_tpu.HippoRAG(_config(tmp_path_factory.mktemp("ref"))))
+    port = _run(hipporag_tpu_torch.HippoRAG(_config(tmp_path_factory.mktemp("port")), device="cpu"))
+    return ref, port
+
+
+def test_ranked_passages_identical(runs):
+    (ref_retrieved, ref_qa), (port_retrieved, port_qa) = runs
+    for ref_sols, port_sols in ((ref_retrieved, port_retrieved), (ref_qa[0], port_qa[0])):
+        assert len(ref_sols) == len(port_sols)
+        for r, p in zip(ref_sols, port_sols):
+            assert p.docs == r.docs
+            np.testing.assert_allclose(p.doc_scores, r.doc_scores, rtol=1e-5, atol=1e-7)
+
+
+def test_rag_qa_answers_and_em_f1_equal(runs):
+    (_, ref_qa), (_, port_qa) = runs
+    assert [s.answer for s in port_qa[0]] == [s.answer for s in ref_qa[0]]
+    assert port_qa[3] == ref_qa[3]  # retrieval recall
+    assert port_qa[4] == ref_qa[4]  # ExactMatch / F1
+
+
+def test_sample_fixture_matches_jax_package(runs):
+    (_, ref_qa), _ = runs
+    with open(FIXTURE) as fh:
+        recorded = json.load(fh)
+    assert recorded["queries"] == _expected(ref_qa[0])
+
+
+def test_port_runs_without_jax_pandas_pyarrow_httpx_filelock(tmp_path):
+    code = f"""
+import sys
+for m in {BLOCKED!r}:
+    sys.modules[m] = None
+sys.path.insert(0, {ROOT!r})
+import torch
+torch.set_num_threads(1)
+import hipporag_tpu_torch
+from hipporag_tpu.datasets import load_dataset
+docs, queries, _, _ = load_dataset("sample", {os.path.join(ROOT, "data")!r})
+cfg = hipporag_tpu_torch.BaseConfig(llm_name="mock", embedding_model_name="mock",
+                                    vector_store_type="memory", save_dir={str(tmp_path)!r})
+rag = hipporag_tpu_torch.HippoRAG(cfg, device="cpu")
+rag.index(docs)
+sols = rag.retrieve(queries)
+assert len(sols) == len(queries) and all(s.docs for s in sols)
+assert not any(m in sys.modules and sys.modules[m] is not None for m in {BLOCKED!r})
+print("OK", len(sols))
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK 3")
+
+
+@pytest.mark.parametrize(
+    "override",
+    [{"mesh_shape": (1, 2)}, {"ppr_format": "coo"}, {"profile_log_dir": "trace"},
+     {"embedding_model_name": "jax/random-64x2"}],
+)
+def test_unported_config_raises(tmp_path, override):
+    cfg = _config(tmp_path)
+    for key, value in override.items():
+        setattr(cfg, key, value)
+    with pytest.raises(NotImplementedError):
+        hipporag_tpu_torch.HippoRAG(cfg, device="cpu")
