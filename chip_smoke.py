@@ -11,7 +11,11 @@ with a non-zero exit:
 1. Kernel vs plain: ``fused_score_topk`` (CUDA pass A) against
    ``fused_score_topk_reference`` (plain PyTorch pass A) and against
    ``score_and_topk`` on small shapes with padding and a constant row,
-   then at the phase-2 shape, with CUDA-event times of both.
+   with float32 and bfloat16 keys; a near-tie case (tile maxima and minima
+   closer than pass A's error), through the kernel and through a pass A
+   perturbed against the true order; then the phase-2 shape with both key
+   types, with CUDA-event times, and a sweep over the bucket sizes
+   B = 8, 32, 128.
 2. The retrieval device path at a realistic size (a 200k-node graph from
    2M sampled edges, 262,144 facts and 32,768 passages at D = 4096, a batch
    of 128 queries): DPR scores, fact top-k through the kernel, seeds, PPR
@@ -21,7 +25,8 @@ with a non-zero exit:
 3. The user entry points: ``HippoRAG(...).index()``, ``.retrieve()`` and
    ``.rag_qa()`` on the sample corpus with the mock LLM and embedder, held
    against ``tests/fixtures/torch_port_sample_expected.json`` (recorded
-   from the JAX package on the CPU).
+   from the JAX package on the CPU), with ``compute_dtype`` float32 and
+   bfloat16 (bf16 keys through the kernel).
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -29,6 +34,7 @@ The line before the last is a JSON record of the kernels; the last line is
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -66,8 +72,41 @@ FULL = dict(nodes=200_000, edges=2_000_000, facts=262_144, passages=32_768, dim=
 DAMPING, PPR_TOL, PPR_MAX_ITERS = 0.5, 1e-6, 64
 # the phase-1 grid (tests/test_pallas.py) plus the constant row
 GRID = [(3, 1024, 384, 1000, 5), (8, 512, 128, 512, 8), (1, 640, 200, 7, 5), (4, 256, 64, 3, 5)]
-# f32 dot products of D terms in another order: |err| <= ~sqrt(D) * 2^-24 * max|dot|
+# kernel (3xTF32, f32 sums per 32-deep stage) vs cuBLAS f32: ~1e-7 of the
+# score scale in practice; scan_delta gives the kernel's worst case
 SCAN_RTOL = 1e-5
+# near ties on the card: 2^-22 apart, inside the kernel's split error
+NEAR_TIE_EPS = 2.0**-22
+# the adversarial pass A of the CPU test (tests/test_torch_fused_topk.py)
+PERTURB_DELTA, PERTURB_EPS = 1e-3, 4e-4
+SWEEP_BATCHES = (8, 32, 128)
+
+
+def scan_delta(q, keys):
+    """Worst-case |error| of one kernel tile extremum against exact
+    arithmetic (csrc/fused_topk_scan.cu): the TF32 split, 3 * 2^-22 (bf16
+    keys 2^-22), plus f32 sums, 96 terms on the tensor core (2^-23 each,
+    it does not round to nearest) and D / 32 promoted partials (2^-24
+    each), all times the largest sum_i |q_i||k_i|."""
+    split = 2.0**-22 * (1 if keys.dtype == torch.bfloat16 else 3)
+    acc = 96 * 2.0**-23 + (keys.shape[1] // 32) * 2.0**-24
+    mag = max(float((q.abs() @ keys[i:i + 65536].float().abs().T).max())
+              for i in range(0, keys.shape[0], 65536))
+    return (split + acc) * mag
+
+
+def scan_layouts():
+    """Dynamic shared memory and ring stages of each kernel instance."""
+    fn = _kernels.load("fused_topk_scan").fused_topk_scan_layout
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = {}
+    for tag, bf16 in (("f32", 0), ("bf16", 1)):
+        for width in fused_topk.QUERY_WIDTHS:
+            smem, stages = ctypes.c_int(), ctypes.c_int()
+            check(fn(width, bf16, ctypes.byref(smem), ctypes.byref(stages)) == 0, f"no kernel of width {width}")
+            out[f"{tag} width {width}"] = [smem.value, stages.value]
+    return out
 
 
 def sync():
@@ -130,22 +169,79 @@ def compare_topk(q, keys, valid_n, k):
 
 def _scan_args(q, keys):
     """Pass A sees the padded shapes fused_score_topk gives it."""
-    d_pad = -(-q.shape[1] // 16) * 16
+    d_pad = -(-q.shape[1] // fused_topk._DEPTH_MULTIPLE) * fused_topk._DEPTH_MULTIPLE
     n_pad = -(-keys.shape[0] // fused_topk.TILE_N) * fused_topk.TILE_N
     return fused_topk._pad_to(q, q.shape[0], d_pad), fused_topk._pad_to(keys, n_pad, d_pad)
 
 
 def phase1_grid(device):
     rng = np.random.default_rng(0)
-    for b, n, d, valid_n, k in GRID:
-        q = rng.standard_normal((b, d)).astype(np.float32)
-        keys = np.zeros((n, d), np.float32)
-        keys[:valid_n] = rng.standard_normal((valid_n, d))
-        compare_topk(torch.from_numpy(q).to(device), torch.from_numpy(keys).to(device), valid_n, k)
-    ones_q = torch.ones(2, 128, device=device)
-    norm, _raw, _idx = fused_topk.fused_score_topk(ones_q, torch.ones(256, 128, device=device), 256, 4)
-    check(bool((norm == 1.0).all()), "constant row must normalize to 1.0")
-    log(f"phase 1: kernel == plain on the {len(GRID)}-shape grid and the constant row")
+    errs = {}
+    for key_dtype in (torch.float32, torch.bfloat16):
+        for b, n, d, valid_n, k in GRID:
+            q = rng.standard_normal((b, d)).astype(np.float32)
+            keys = np.zeros((n, d), np.float32)
+            keys[:valid_n] = rng.standard_normal((valid_n, d))
+            keys = torch.from_numpy(keys).to(device, key_dtype)
+            err = compare_topk(torch.from_numpy(q).to(device), keys, valid_n, k)
+            errs[str(key_dtype)] = max(errs.get(str(key_dtype), 0.0), err)
+        ones_q = torch.ones(2, 128, device=device)
+        ones_k = torch.ones(256, 128, device=device, dtype=key_dtype)
+        norm, _raw, _idx = fused_topk.fused_score_topk(ones_q, ones_k, 256, 4)
+        check(bool((norm == 1.0).all()), f"constant row must normalize to 1.0 ({key_dtype} keys)")
+    log(f"phase 1: kernel == plain on the {len(GRID)}-shape grid and the constant row, "
+        f"f32 and bf16 keys; scan max|err| {json.dumps(errs)}")
+
+
+def near_tie_inputs(rng, eps, device, n_tiles=8, d=64):
+    """Row r scores key column r exactly (q = e_r): its 3rd and 4th tile
+    maxima, and its two lowest tile minima, lie ``eps`` apart
+    (tests/test_torch_fused_topk.py builds the same case)."""
+    b, n = 2, n_tiles * fused_topk.TILE_N
+    keys = rng.uniform(0.1, 0.5, (n, d)).astype(np.float32)
+    q = np.zeros((b, d), np.float32)
+    tiles = []
+    for r in range(b):
+        q[r, r] = 1.0
+        t = rng.permutation(n_tiles)[:6]
+        for tile, value in zip(t, (0.95, 0.9, 0.8, 0.8 - eps, -0.5, -0.5 + eps)):
+            keys[tile * fused_topk.TILE_N + rng.integers(fused_topk.TILE_N), r] = value
+        tiles.append(t)
+    return torch.from_numpy(q).to(device), torch.from_numpy(keys).to(device), tiles
+
+
+def phase1_near_ties(device, k=3):
+    """The widened refine keeps the top-k exact where pass A cannot order
+    the tiles: ties 2^-22 apart through the kernel, and ties 4e-4 apart
+    under a pass A moved by up to 1e-3 against the true order."""
+    rng = np.random.default_rng(7)
+    for seed in range(3):
+        q, keys, _tiles = near_tie_inputs(rng, NEAR_TIE_EPS, device)
+        compare_topk(q, keys, keys.shape[0], k)
+        q, keys, tiles = near_tie_inputs(rng, PERTURB_EPS, device)
+
+        def perturbed(qs, ks, valid_n, tiles=tiles, seed=seed):
+            tmax, tmin = fused_topk.scan_tiles(qs, ks, valid_n)
+            noise = np.random.default_rng(seed + 100)
+            tmax = tmax + torch.from_numpy(
+                noise.uniform(-PERTURB_DELTA, PERTURB_DELTA, tuple(tmax.shape)).astype(np.float32)).to(device)
+            tmin = tmin + torch.from_numpy(
+                noise.uniform(-PERTURB_DELTA, PERTURB_DELTA, tuple(tmin.shape)).astype(np.float32)).to(device)
+            for r, t in enumerate(tiles):
+                tmax[r, t[2]] -= 0.9 * PERTURB_DELTA
+                tmax[r, t[3]] += 0.9 * PERTURB_DELTA
+                tmin[r, t[4]] += 0.9 * PERTURB_DELTA
+                tmin[r, t[5]] -= 0.9 * PERTURB_DELTA
+            return tmax, tmin
+
+        n = keys.shape[0]
+        want = fused_topk.fused_score_topk_reference(q, keys, n, k)
+        got = fused_topk._fused_topk(perturbed, q, keys, n, k)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              "near ties: the widened refine differs from the plain path under a perturbed pass A")
+        narrow = fused_topk._fused_topk(perturbed, q, keys, n, k, extra_tiles=0, min_tiles=1)
+        check(not torch.equal(narrow[2], want[2]), "near ties: the case does not need the widening")
+    log("phase 1: near ties (2^-22 through the kernel, 4e-4 under a 1e-3 perturbation) stay exact")
 
 
 def make_embeddings(rng, rows, dim, device):
@@ -162,25 +258,47 @@ def near_queries(rng, emb, batch, device):
 
 
 def phase1_big(qf, fact_emb, num_facts, k):
-    err = compare_topk(qf, fact_emb, num_facts, k)
-    qs, ks = _scan_args(qf, fact_emb)
-    times = {}
-    # plain, kernel, kernel, plain: both sides see the same card state
-    for name, fn in (
-        ("scan_plain", lambda: fused_topk.scan_tiles_reference(qs, ks, num_facts)),
-        ("scan_kernel", lambda: fused_topk.scan_tiles(qs, ks, num_facts)),
-        ("fused_topk_kernel", lambda: fused_topk.fused_score_topk(qf, fact_emb, num_facts, k)),
-        ("fused_topk_plain_scan", lambda: fused_topk.fused_score_topk_reference(qf, fact_emb, num_facts, k)),
-        ("score_and_topk", lambda: score_and_topk(qf, fact_emb, num_facts, k)),
-    ):
-        times[name] = [time_ms(fn)]
-    for name in ("scan_kernel", "scan_plain"):
-        fn = (fused_topk.scan_tiles if name == "scan_kernel" else fused_topk.scan_tiles_reference)
-        times[name].append(time_ms(lambda fn=fn: fn(qs, ks, num_facts)))
-    ms = {name: float(np.mean(v)) for name, v in times.items()}
-    log(f"phase 1 at B={qf.shape[0]} N={fact_emb.shape[0]} D={fact_emb.shape[1]} k={k}: "
-        f"scan max|err| {err:.3e}; ms {json.dumps(ms)}")
-    return err, ms
+    """The phase-2 shape with f32 and bf16 keys: errors, CUDA-event times,
+    and the bucket-size sweep."""
+    fact_bf16 = fact_emb.to(torch.bfloat16)
+    out = {}
+    for tag, keys in (("f32", fact_emb), ("bf16", fact_bf16)):
+        err = compare_topk(qf, keys, num_facts, k)
+        qs, ks = _scan_args(qf, keys)
+        times = {}
+        # plain, kernel, kernel, plain: both sides see the same card state
+        for name, fn in (
+            ("scan_plain", lambda: fused_topk.scan_tiles_reference(qs, ks, num_facts)),
+            ("scan_kernel", lambda: fused_topk.scan_tiles(qs, ks, num_facts)),
+            ("fused_topk_kernel", lambda: fused_topk.fused_score_topk(qf, keys, num_facts, k)),
+            ("fused_topk_plain_scan", lambda: fused_topk.fused_score_topk_reference(qf, keys, num_facts, k)),
+            ("score_and_topk", lambda: score_and_topk(qf, keys, num_facts, k)),
+        ):
+            times[name] = [time_ms(fn)]
+        for name in ("scan_kernel", "scan_plain"):
+            fn = (fused_topk.scan_tiles if name == "scan_kernel" else fused_topk.scan_tiles_reference)
+            times[name].append(time_ms(lambda fn=fn: fn(qs, ks, num_facts)))
+        ms = {name: float(np.mean(v)) for name, v in times.items()}
+        delta = scan_delta(qs, ks)
+        check(err <= delta, f"phase 1 ({tag} keys): scan max|err| {err} above the stated bound {delta}")
+        log(f"phase 1 at B={qf.shape[0]} N={keys.shape[0]} D={keys.shape[1]} k={k}, {tag} keys: "
+            f"scan max|err| {err:.3e} (bound {delta:.3e}); ms {json.dumps(ms)}")
+        out[tag] = dict(err=err, delta=delta, ms=ms)
+
+    sweep = {}
+    for b in SWEEP_BATCHES:
+        q = qf[:b]
+        row = {}
+        for tag, keys in (("f32", fact_emb), ("bf16", fact_bf16)):
+            qs, ks = _scan_args(q, keys)
+            row[f"scan_plain_{tag}"] = time_ms(lambda: fused_topk.scan_tiles_reference(qs, ks, num_facts))
+            row[f"scan_kernel_{tag}"] = time_ms(lambda: fused_topk.scan_tiles(qs, ks, num_facts))
+            row[f"fused_topk_kernel_{tag}"] = time_ms(lambda: fused_topk.fused_score_topk(q, keys, num_facts, k))
+        row["score_and_topk_f32"] = time_ms(lambda: score_and_topk(q, fact_emb, num_facts, k))
+        sweep[b] = row
+    log("phase 1 sweep over B (ms): " + json.dumps(sweep))
+    out["sweep"] = sweep
+    return out
 
 
 def synthetic_graph(num_nodes, num_edges, seed=0):
@@ -288,7 +406,7 @@ def phase2(device, sizes, seed=0):
     s2, d2, w2, dangling = bucket["coo"]
     n, p, b, k = sizes["nodes"], sizes["passages"], sizes["batch"], sizes["link_top_k"]
 
-    err, ms = phase1_big(bucket["qf"], bucket["fact_emb"], sizes["facts"], k)
+    big = phase1_big(bucket["qf"], bucket["fact_emb"], sizes["facts"], k)
 
     torch.cuda.reset_peak_memory_stats()
     fused_topk.SCAN_LAUNCHES.reset()
@@ -332,17 +450,17 @@ def phase2(device, sizes, seed=0):
         "setup_s": bucket["setup_s"],
     }
     log("phase 2: " + json.dumps(detail))
-    return err, ms, launches, detail
+    return big, launches, detail
 
 
-def phase3(device):
+def phase3(device, compute_dtype="float32"):
     with open(FIXTURE) as fh:
         expected = json.load(fh)["queries"]
     docs, queries, gold_docs, gold_answers = load_dataset("sample", os.path.join(ROOT, "data"))
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         cfg = BaseConfig(llm_name="mock", embedding_model_name="mock",
-                         vector_store_type="memory", save_dir=tmp)
+                         vector_store_type="memory", save_dir=tmp, compute_dtype=compute_dtype)
         rag = HippoRAG(cfg, device=device)
         rag.index(docs)
         fused_topk.SCAN_LAUNCHES.reset()
@@ -351,17 +469,18 @@ def phase3(device):
         sync()
         wall = time.perf_counter() - t0
         launches = fused_topk.SCAN_LAUNCHES.count
-        check(launches > 0, "phase 3: retrieve did not launch the fused kernel")
+        check(launches > 0, f"phase 3 ({compute_dtype}): retrieve did not launch the fused kernel")
         qa_sols = rag.rag_qa(queries, gold_docs=gold_docs, gold_answers=gold_answers)[0]
     for exp, sol, qa in zip(expected, sols, qa_sols):
         for got in (sol, qa):
             ids = [compute_mdhash_id(doc, "chunk-") for doc in got.docs]
             check(got.question == exp["question"] and ids == exp["ranked_passage_ids"],
-                  f"phase 3: ranked passages differ from the JAX package for {exp['question']!r}")
+                  f"phase 3 ({compute_dtype}): ranked passages differ from the JAX package for "
+                  f"{exp['question']!r}")
         check(qa.answer == exp["answer"], f"phase 3: answer {qa.answer!r} != {exp['answer']!r}")
     check(len(sols) == len(expected), "phase 3: query count differs from the fixture")
-    log(f"phase 3: index/retrieve/rag_qa on {len(docs)} passages, {len(queries)} queries "
-        f"match the JAX package; retrieve wall {wall * 1e3:.1f} ms, {launches} kernel launches")
+    log(f"phase 3 ({compute_dtype}): index/retrieve/rag_qa on {len(docs)} passages, {len(queries)} "
+        f"queries match the JAX package; retrieve wall {wall * 1e3:.1f} ms, {launches} kernel launches")
     return {"retrieve_wall_ms": wall * 1e3, "kernel_launches": launches}
 
 
@@ -387,22 +506,29 @@ def main() -> int:
     log(f"kernel build: fused_topk_scan.cu {build_s:.1f} s (load {time.perf_counter() - start:.1f} s)")
     for line in build_log.strip().splitlines():
         log(f"  nvcc: {line}")
+    log("kernel shared memory per block (bytes, ring stages): " + json.dumps(scan_layouts()))
 
     phase1_grid(device)
-    err, ms, launches, detail = phase2(device, FULL)
-    detail["phase1_ms"] = ms
-    detail["phase3"] = phase3(device)
+    phase1_near_ties(device)
+    big, launches, detail = phase2(device, FULL)
+    detail["phase3"] = {dt: phase3(device, dt) for dt in ("float32", "bfloat16")}
     log("phase 3: " + json.dumps(detail["phase3"]))
 
+    f32, bf16 = big["f32"], big["bf16"]
     kernels = [{
         "name": "fused_topk_scan",
         "route": "cuda",
         "source": "hipporag_tpu_torch/csrc/fused_topk_scan.cu",
         "replaces": "hipporag_tpu/ops/fused_topk.py:58",
         "launches": launches,
-        "max_abs_err": err,
-        "ms": ms["scan_kernel"],
-        "plain_ms": ms["scan_plain"],
+        "max_abs_err": f32["err"],
+        "delta_bound": f32["delta"],
+        "ms": f32["ms"]["scan_kernel"],
+        "plain_ms": f32["ms"]["scan_plain"],
+        "max_abs_err_bf16": bf16["err"],
+        "delta_bound_bf16": bf16["delta"],
+        "ms_bf16": bf16["ms"]["scan_kernel"],
+        "plain_ms_bf16": bf16["ms"]["scan_plain"],
     }]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,13 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library at first use,
-and loaded with ctypes. From a checkout the libraries go to
-``build/torch_kernels/`` at the repository root; an installed package
+and loaded with ctypes. A library's file name carries a hash of the flags
+and of every source it may be built from (the ``.cu`` and all
+``csrc/*.cuh``), so a change to any of them builds a new one. Nothing is
+linked beyond the CUDA runtime: a kernel that needs a driver function (TMA's
+``cuTensorMapEncodeTiled``) reaches it through the runtime's driver entry
+point (``cudaGetDriverEntryPoint``), not ``-lcuda``. From a checkout the
+libraries go to ``build/torch_kernels/`` at the repository root; an installed package
 builds into the user's cache (``$XDG_CACHE_HOME`` or ``~/.cache``) under
 ``hipporag_tpu_torch/kernels``. Nothing is built or imported when this
 module is imported: the CPU installation has no ``nvcc``.
@@ -12,6 +17,8 @@ module is imported: the CPU installation has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import glob
+import hashlib
 import os
 import shutil
 import subprocess
@@ -77,19 +84,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _sources(name: str) -> list[str]:
+    """The files ``csrc/<name>.cu`` may be built from: itself and every header."""
+    return [os.path.join(CSRC_DIR, f"{name}.cu"), *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]
+
+
+def library_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` lives, keyed by a hash of
+    the nvcc flags and the contents of its sources."""
+    digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        with open(path, "rb") as fh:
+            digest.update(os.path.basename(path).encode() + b"\0" + fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``; builds it on first use.
 
-    Thread-safe: concurrent first calls build once. A library older than
-    its source is rebuilt.
+    Thread-safe: concurrent first calls build once. A library whose flags
+    or sources changed is rebuilt.
     """
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
         src = os.path.join(CSRC_DIR, f"{name}.cu")
-        out = os.path.join(BUILD_DIR, f"lib{name}.so")
-        if not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src):
+        out = library_path(name)
+        if not os.path.exists(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
             start = time.perf_counter()

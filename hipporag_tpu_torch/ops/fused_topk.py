@@ -5,15 +5,21 @@ The [B, N] query-by-key score matrix is never formed. Two passes:
   Pass A (``scan_tiles``, the hand-written CUDA kernel
   ``csrc/fused_topk_scan.cu``): per [TILE_N, D] key tile, each row's max
   and min of S = Q K_tile^T over the valid columns (col < valid_n), into
-  [B, n_tiles] buffers.
+  [B, n_tiles] buffers. Queries are float32; keys float32 or bfloat16,
+  accumulated in float32, as the Pallas kernel takes them. The kernel
+  reaches f32 accuracy on the TF32 tensor cores with an error-compensated
+  split, so its extrema may differ from exact f32 dots by a small delta
+  (bounded in the kernel's source note).
 
   Refinement (torch ops): the true top-k values of a row live in its top-k
   tiles by max, so those tiles are gathered and re-dotted, one selected
   rank at a time to bound the gather at B * TILE_N * D floats, and a final
-  top-k over the k * TILE_N candidates gives the exact result. The row
-  extrema for min-max normalization come from the same re-dot: the max is
-  the top candidate, the min is taken over the tile with the smallest
-  pass-A min.
+  top-k over the candidates gives the exact result. Because pass A is exact
+  only to within delta, the refine takes ``EXTRA_TILES`` more tiles than k
+  (a tile whose max lies within 2 delta of the k-th can swap ranks with
+  it). The row extrema for min-max normalization come from the same re-dot:
+  the max is the top candidate, the min is taken over the ``MIN_TILES``
+  tiles with the smallest pass-A mins.
 
 Normalization follows ``ops.scoring.min_max_normalize``: constant rows map
 to 1.0, missing candidates (fewer than k valid keys) to norm 0 and index 0.
@@ -32,7 +38,12 @@ from ._kernels import LaunchCounter, load
 from .scoring import topk_lower_index
 
 TILE_N = 128  # keys per tile; the kernel's TILE_N
-_DEPTH_MULTIPLE = 16  # the kernel stages D in 16-wide chunks
+_DEPTH_MULTIPLE = 32  # the kernel stages D in 32-deep chunks
+# query widths the kernel is built for: B is rounded up to one of them
+# (and runs in chunks of the largest)
+QUERY_WIDTHS = (8, 16, 32, 64, 128)
+EXTRA_TILES = 2  # tiles refined beyond the top-k by pass-A max
+MIN_TILES = 2  # tiles with the smallest pass-A min re-dotted for the row min
 # Bound on the [B, cols] score block the plain scan forms at once.
 _PLAIN_SCAN_BYTES = 1 << 28
 
@@ -59,6 +70,69 @@ def scan_tiles_reference(queries: torch.Tensor, keys: torch.Tensor, valid_n, til
     return tmax, tmin
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value, ties away from zero (``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo), both TF32 values: hi = rna(x), lo = rna(x - hi).
+
+    x - hi - lo is at most 2^-22 |x|; the kernel applies the same split to
+    the keys.
+    """
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def query_width(b: int) -> int:
+    """The kernel's query chunk width for a batch of ``b`` rows."""
+    return next((w for w in QUERY_WIDTHS if w >= b), QUERY_WIDTHS[-1])
+
+
+def arrange_queries(queries: torch.Tensor, width: int) -> torch.Tensor:
+    """[B, D] float32 -> the kernel's query operand.
+
+    Shape [chunks, D / 32, 2, 4, 2, width, 4]: for query chunk qc, depth
+    stage s, split part (hi, lo), k-step j, half h, query n and column c,
+    the value of part[qc * width + n, 32 s + 8 c + 2 j + h]. One (chunk,
+    stage) is one contiguous bulk copy; in it each (part, j) is the K-major
+    [width, 8] wgmma operand of logical depth c + 4 h. The kernel reads the
+    keys' depth in the same permuted order. Rows past B are zero.
+    """
+    b, d = queries.shape
+    chunks = -(-b // width)
+    q = F.pad(queries.float(), (0, 0, 0, chunks * width - b))
+    parts = [
+        part.view(chunks, width, d // _DEPTH_MULTIPLE, 4, 4, 2).permute(0, 2, 4, 5, 1, 3)
+        for part in split_tf32(q)
+    ]
+    return torch.stack(parts, dim=2).contiguous()
+
+
+def check_scan_args(queries: torch.Tensor, keys: torch.Tensor) -> None:
+    """Raise unless the kernel takes these operands (device aside)."""
+    if queries.dtype != torch.float32 or keys.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(
+            f"scan_tiles kernel takes float32 queries and float32 or bfloat16 keys, "
+            f"got {queries.dtype} and {keys.dtype}"
+        )
+    if queries.dim() != 2 or keys.dim() != 2 or keys.shape[1] != queries.shape[1]:
+        raise ValueError(f"scan_tiles: keys {tuple(keys.shape)} do not match queries {tuple(queries.shape)}")
+    b, d = queries.shape
+    n = keys.shape[0]
+    if n % TILE_N or d % _DEPTH_MULTIPLE or b == 0 or n == 0:
+        raise ValueError(
+            f"scan_tiles kernel needs N % {TILE_N} == 0, D % {_DEPTH_MULTIPLE} == 0 "
+            f"and B, N > 0; got B={b}, N={n}, D={d}"
+        )
+    if not keys.is_contiguous():
+        raise ValueError("scan_tiles kernel needs contiguous keys")
+    if keys.data_ptr() % 16:
+        raise ValueError("scan_tiles kernel needs 16-byte aligned keys")
+
+
 def scan_tiles(queries: torch.Tensor, keys: torch.Tensor, valid_n):
     """Pass A: (tmax, tmin), each [B, N // TILE_N] float32.
 
@@ -72,32 +146,18 @@ def scan_tiles(queries: torch.Tensor, keys: torch.Tensor, valid_n):
             f"scan_tiles: queries on {queries.device} and keys on {keys.device}; "
             "both must be on one CUDA device (or both on the CPU)"
         )
-    if queries.dtype != torch.float32 or keys.dtype != torch.float32:
-        raise TypeError(
-            f"scan_tiles kernel takes float32 queries and keys, got {queries.dtype} "
-            f"and {keys.dtype} (compute_dtype='bfloat16' is not supported by the "
-            "fused kernel; set use_pallas_kernels=False)"
-        )
+    check_scan_args(queries, keys)
     b, d = queries.shape
     n = keys.shape[0]
-    if keys.dim() != 2 or keys.shape[1] != d:
-        raise ValueError(f"scan_tiles: keys {tuple(keys.shape)} do not match queries {tuple(queries.shape)}")
-    if n % TILE_N or d % _DEPTH_MULTIPLE or b == 0:
-        raise ValueError(
-            f"scan_tiles kernel needs N % {TILE_N} == 0, D % {_DEPTH_MULTIPLE} == 0 "
-            f"and B > 0; got B={b}, N={n}, D={d}"
-        )
-    if not (queries.is_contiguous() and keys.is_contiguous()):
-        raise ValueError("scan_tiles kernel needs contiguous queries and keys")
-    if queries.data_ptr() % 16 or keys.data_ptr() % 16:
-        raise ValueError("scan_tiles kernel needs 16-byte aligned queries and keys")
     fn = _scan_fn()
+    width = query_width(b)
+    qarr = arrange_queries(queries, width)
     tmax = torch.empty(b, n // TILE_N, dtype=torch.float32, device=queries.device)
     tmin = torch.empty_like(tmax)
     stream = torch.cuda.current_stream(queries.device).cuda_stream
     err = fn(
-        queries.data_ptr(), keys.data_ptr(), tmax.data_ptr(), tmin.data_ptr(),
-        b, n, d, int(valid_n), stream,
+        qarr.data_ptr(), keys.data_ptr(), int(keys.dtype == torch.bfloat16),
+        tmax.data_ptr(), tmin.data_ptr(), b, n, d, int(valid_n), width, stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_topk_scan kernel launch failed: CUDA error {err}")
@@ -107,11 +167,14 @@ def scan_tiles(queries: torch.Tensor, keys: torch.Tensor, valid_n):
 
 def _scan_fn():
     lib = load("fused_topk_scan")
-    fn = lib.fused_topk_scan_f32
+    fn = lib.fused_topk_scan
     if fn.argtypes is None:
-        if lib.fused_topk_scan_tile_n() != TILE_N:
-            raise RuntimeError("fused_topk_scan.cu TILE_N differs from ops/fused_topk.TILE_N")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+        if lib.fused_topk_scan_tile_n() != TILE_N or lib.fused_topk_scan_depth() != _DEPTH_MULTIPLE:
+            raise RuntimeError("fused_topk_scan.cu TILE_N/DEPTH differ from ops/fused_topk")
+        fn.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+        )
         fn.restype = ctypes.c_int
     return fn
 
@@ -122,7 +185,8 @@ def _pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return F.pad(x, (0, cols - x.shape[1], 0, rows - x.shape[0]))
 
 
-def _fused_topk(scan, queries, keys, valid_n, k: int):
+def _fused_topk(scan, queries, keys, valid_n, k: int, extra_tiles: int = EXTRA_TILES,
+                min_tiles: int = MIN_TILES):
     b, d = queries.shape
     n = keys.shape[0]
     k = min(k, n)
@@ -144,9 +208,9 @@ def _fused_topk(scan, queries, keys, valid_n, k: int):
         """Scores [B, TILE_N] of each row against one selected tile, and their key ids."""
         return torch.bmm(keys3[tiles].float(), q)[:, :, 0], tiles[:, None] * TILE_N + col
 
-    # select each row's top-kt tiles by max (invalid tiles carry -inf) and
-    # re-dot them, one rank at a time to bound the gather
-    kt = min(k, n_tiles)
+    # select each row's top-(k + extra) tiles by max (invalid tiles carry
+    # -inf) and re-dot them, one rank at a time to bound the gather
+    kt = min(k + extra_tiles, n_tiles)
     _tile_vals, tile_sel = topk_lower_index(tmax, kt)  # [B, kt]
     cand = torch.empty(b, kt, TILE_N, dtype=torch.float32, device=queries.device)
     cidx = torch.empty(b, kt, TILE_N, dtype=torch.int64, device=queries.device)
@@ -160,12 +224,15 @@ def _fused_topk(scan, queries, keys, valid_n, k: int):
     idx = torch.gather(cidx, 1, pos)
 
     # Row extrema in the refinement's arithmetic: the max is the top
-    # candidate, the min comes from re-dotting the tile with the smallest
-    # pass-A min. Pass A sums in another order, so its extrema can differ
-    # from a re-dotted score by an ulp, which would move a score equal to
-    # the row min off 0 after normalization.
-    low, low_idx = redot(tmin.argmin(1))
-    mn = torch.where(low_idx < valid_n, low, torch.inf).amin(1, keepdim=True)
+    # candidate, the min comes from re-dotting the tiles with the smallest
+    # pass-A mins. Pass A's extrema differ from a re-dotted score by up to
+    # its delta, which would move a score equal to the row min off 0 after
+    # normalization, and can swap the two lowest tiles.
+    _low_vals, low_sel = topk_lower_index(-tmin, min(min_tiles, n_tiles))
+    mn = torch.full((b, 1), torch.inf, device=queries.device)
+    for r in range(low_sel.shape[1]):
+        low, low_idx = redot(low_sel[:, r])
+        mn = torch.minimum(mn, torch.where(low_idx < valid_n, low, torch.inf).amin(1, keepdim=True))
     mx = vals[:, :1]
     rng = mx - mn
     finite = vals > -torch.inf
@@ -180,9 +247,11 @@ def fused_score_topk(queries: torch.Tensor, keys: torch.Tensor, valid_n, k: int)
 
     Args:
       queries: [B, D] query embeddings.
-      keys: [N, D] key embeddings (rows >= valid_n are padding).
+      keys: [N, D] key embeddings, float32 or bfloat16 (rows >= valid_n
+        are padding).
       valid_n: number of real key rows.
-      k: top-k (k * TILE_N candidates are refined; keep k modest).
+      k: top-k ((k + EXTRA_TILES) * TILE_N candidates are refined; keep k
+        modest).
 
     Returns:
       (norm_vals [B, k], raw_vals [B, k], idx [B, k] int32). Rows with fewer

@@ -110,6 +110,12 @@ def fact_topk(
 
     ``use_fused=None`` routes by :func:`fused_topk_route`; ``False`` pins the
     plain path. Padded/absent keys yield norm value 0.
+
+    ``compute_dtype`` applies to the plain path only, which rounds the
+    queries to bfloat16 along with the keys (:func:`batched_scores`), as the
+    reference's XLA path does. The fused path, like the reference's Pallas
+    kernel, takes the keys as they are resident (float32, or bfloat16 under
+    ``compute_dtype="bfloat16"``) with float32 queries and accumulation.
     """
     if use_fused is None:
         use_fused = fused_topk_route(queries.shape[0], keys.shape[0], queries.device)

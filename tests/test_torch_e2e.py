@@ -86,6 +86,30 @@ def test_sample_fixture_matches_jax_package(runs):
     assert recorded["queries"] == _expected(ref_qa[0])
 
 
+def test_bfloat16_fused_route_matches_fixture(tmp_path, monkeypatch):
+    """compute_dtype="bfloat16" keeps bf16 fact embeddings resident; routed
+    through the fused top-k (as every CUDA call is), with f32 queries, the
+    sample run still ranks and answers as the JAX package's f32 run.
+    ``chip_smoke.py`` phase 3 checks the same through the kernel."""
+    from hipporag_tpu_torch.ops import fused_topk, scoring
+
+    scans = []
+
+    def counted(queries, keys, valid_n, tile_n=fused_topk.TILE_N):
+        scans.append(keys.dtype)
+        return plain(queries, keys, valid_n, tile_n)
+
+    plain = fused_topk.scan_tiles_reference
+    monkeypatch.setattr(fused_topk, "scan_tiles_reference", counted)
+    monkeypatch.setattr(scoring, "fused_topk_route", lambda b, n, device: True)
+    cfg = _config(tmp_path)
+    cfg.compute_dtype = "bfloat16"
+    _retrieved, qa = _run(hipporag_tpu_torch.HippoRAG(cfg, device="cpu"))
+    assert scans and all(dt == torch.bfloat16 for dt in scans)
+    with open(FIXTURE) as fh:
+        assert _expected(qa[0]) == json.load(fh)["queries"]
+
+
 def test_port_runs_without_jax_pandas_pyarrow_httpx_filelock(tmp_path):
     code = f"""
 import sys

@@ -96,6 +96,29 @@ def test_kernel_build_dir(tmp_path, monkeypatch, checkout):
     assert _kernels._build_dir() == str(expected)
 
 
+@pytest.mark.parametrize("change", ["header", "new header", "source", "flags"])
+def test_kernel_library_stale_after_any_source_change(tmp_path, monkeypatch, change):
+    """A library is keyed by its flags and every source it may include: a
+    changed header marks it stale, not only a changed .cu."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_kernels, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(_kernels, "BUILD_DIR", str(tmp_path / "build"))
+    built = _kernels.library_path("k")
+    assert built.startswith(str(tmp_path / "build")) and _kernels.library_path("k") == built
+    if change == "header":
+        (csrc / "h.cuh").write_text("// v2\n")
+    elif change == "new header":
+        (csrc / "g.cuh").write_text("// new\n")
+    elif change == "source":
+        (csrc / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    else:
+        monkeypatch.setattr(_kernels, "NVCC_FLAGS", (*_kernels.NVCC_FLAGS, "-lineinfo"))
+    assert _kernels.library_path("k") != built
+
+
 def test_scan_wrapper_refuses_non_cpu_non_cuda_tensors():
     """A tensor off the CPU takes the kernel or raises; it never falls back."""
     q = torch.empty(4, 128, device="meta")
