@@ -27,6 +27,23 @@ with a non-zero exit:
    against ``tests/fixtures/torch_port_sample_expected.json`` (recorded
    from the JAX package on the CPU), with ``compute_dtype`` float32 and
    bfloat16 (bf16 keys through the kernel).
+4. The on-device encoder at BERT-base width (``jax/random-768x12``:
+   hidden 768, 12 layers, 12 heads, FFN 3072): (a) the embeddings of 16
+   texts spanning the buckets 16-512, in bf16 and f32 compute, held to
+   ``tests/fixtures/torch_port_encoder_768x12.npz`` (the JAX package on the
+   CPU) within the bounds stored there; (b) the lengths path and the
+   full-mask path bit-equal, a zero-length row giving zeros; (c) 16,384
+   synthetic passages of 48-500 words in bf16, batches of 128 sorted by
+   length: tokens/s, ms per batch by bucket, the share of the bf16 dense
+   peak, peak memory, and ``batch_encode`` over 2,048 of them unsorted;
+   (d) 1,024 of them in f32; (e) one bucket of 128 queries of 8-24 words.
+5. The dense entry points on the encoder (f32): ``HippoRAG`` index ->
+   retrieve -> rag_qa, ``retrieve_dpr``, ``rag_qa_dpr``,
+   ``dense_passage_retrieval`` and ``StandardRAG`` index -> retrieve ->
+   rag_qa on the sample corpus, held to
+   ``tests/fixtures/torch_port_encoder_sample_expected.json`` (the JAX
+   package on the CPU), with the kernel launched by ``retrieve``; then the
+   CLI, ``python -m hipporag_tpu_torch``, once as a subprocess.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -48,7 +65,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from hipporag_tpu_torch import BaseConfig, HippoRAG, compute_mdhash_id, load_dataset  # noqa: E402
+from hipporag_tpu_torch import (  # noqa: E402
+    BaseConfig,
+    HippoRAG,
+    StandardRAG,
+    compute_mdhash_id,
+    load_dataset,
+)
+from hipporag_tpu_torch.embedding.encoder import TorchEncoderEmbeddingModel  # noqa: E402
 from hipporag_tpu_torch.models.retrieval import (  # noqa: E402
     RetrievalIndex,
     graph_search_batch,
@@ -65,6 +89,8 @@ from hipporag_tpu_torch.ops.pagerank import (  # noqa: E402
 from hipporag_tpu_torch.ops.scoring import batched_scores, fact_topk, score_and_topk  # noqa: E402
 
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_sample_expected.json")
+ENCODER_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_encoder_768x12.npz")
+ENTRY_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_encoder_sample_expected.json")
 
 # phase-2 shape: the bench headline graph, NV-Embed-v2 width, one retrieval bucket
 FULL = dict(nodes=200_000, edges=2_000_000, facts=262_144, passages=32_768, dim=4096,
@@ -80,6 +106,16 @@ NEAR_TIE_EPS = 2.0**-22
 # the adversarial pass A of the CPU test (tests/test_torch_fused_topk.py)
 PERTURB_DELTA, PERTURB_EPS = 1e-3, 4e-4
 SWEEP_BATCHES = (8, 32, 128)
+# phase 4: BERT-base width; NVIDIA's dense peaks of one H100 SXM at 700 W
+ENCODER = "jax/random-768x12"
+BF16_PEAK_FLOPS, F32_PEAK_FLOPS = 989e12, 67e12
+PASSAGES, PASSAGE_WORDS, ENCODE_BATCH = 16_384, (48, 500), 128
+UNSORTED_PASSAGES = 2_048
+F32_PASSAGES, QUERIES, QUERY_WORDS = 1_024, 128, (8, 24)
+# phase 5: doc scores are min-max normalized over passages whose raw scores
+# lie close together, which magnifies the encoder's ~1e-7 differences to
+# ~1e-5; rankings, answers and metrics are compared exactly
+ENTRY_SCORE_ATOL = 1e-4
 
 
 def scan_delta(q, keys):
@@ -484,6 +520,298 @@ def phase3(device, compute_dtype="float32"):
     return {"retrieve_wall_ms": wall * 1e3, "kernel_launches": launches}
 
 
+# ----------------------------------------------------------------------
+# Phase 4: the encoder at BERT-base width
+# ----------------------------------------------------------------------
+def encoder_model(device, compute_dtype, tmp, batch_size=ENCODE_BATCH):
+    cfg = BaseConfig(embedding_model_name=ENCODER, embedding_model_dtype=compute_dtype,
+                     embedding_batch_size=batch_size, save_dir=tmp)
+    return TorchEncoderEmbeddingModel(cfg, device=device)
+
+
+def encode_each(model, texts):
+    """Each text alone, in its own bucket: [N, D] on the host."""
+    rows = []
+    for text in texts:
+        ids, mask = model.pretokenize([text])
+        rows.append(model.encode_pretokenized(ids, mask).cpu().numpy()[0])
+    return np.stack(rows)
+
+
+def check_bounds(got, want, bounds, compute_dtype, what):
+    """The CPU test's bounds (tests/test_torch_encoder.py), stored in the fixture."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape and bool(np.isfinite(got).all()), f"{what}: shape or non-finite values")
+    err = float(np.abs(got - want).max())
+    real = np.linalg.norm(want, axis=1) > 0
+    cos = (got * want).sum(1)[real] / (np.linalg.norm(got, axis=1)[real] * np.linalg.norm(want, axis=1)[real])
+    if compute_dtype == "float32":
+        check(err <= bounds["f32_max_abs"], f"{what}: max|err| {err} > {bounds['f32_max_abs']}")
+    else:
+        check(err <= bounds["bf16_max_abs"], f"{what}: max|err| {err} > {bounds['bf16_max_abs']}")
+        check(cos.min() >= bounds["bf16_min_cos"], f"{what}: min cosine {cos.min()} < {bounds['bf16_min_cos']}")
+    return {"max_abs_err": err, "min_cos": float(cos.min())}
+
+
+def synthetic_texts(rng, n, words_range, vocab_size=20_000):
+    """``n`` texts of ``words_range`` random words from a seeded vocabulary."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["".join(letters[rng.integers(0, 26, rng.integers(3, 11))]) for _ in range(vocab_size)]
+    counts = rng.integers(words_range[0], words_range[1] + 1, n)
+    flat = rng.integers(0, vocab_size, int(counts.sum()))
+    cuts = np.concatenate([[0], np.cumsum(counts)])
+    return [" ".join(vocab[j] for j in flat[cuts[i]:cuts[i + 1]]) for i in range(n)]
+
+
+def encode_throughput(model, batches, peak_flops):
+    """Device time of each pretokenized batch (CUDA events after one warm-up
+    batch per bucket), by bucket; model FLOPs per token and layer are
+    24 d^2 (the six products) + 4 L d (the two attention products)."""
+    enc = model.encoder
+    d, layers = enc.dim, len(enc.layers)
+    warm = {}
+    for ids, mask in batches:
+        warm.setdefault(ids.shape[1], (ids, mask))
+    for ids, mask in warm.values():
+        model.encode_pretokenized(ids, mask)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    outs = []
+    for ids, mask in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs.append(model.encode_pretokenized(ids, mask))
+        end.record()
+        events.append((start, end))
+    sync()
+    peak = peak_memory()
+    by_bucket, total_ms, flops, real, padded = {}, 0.0, 0.0, 0, 0
+    for (ids, mask), (start, end), out in zip(batches, events, outs):
+        b, l = ids.shape
+        ms = start.elapsed_time(end)
+        check(tuple(out.shape) == (b, d) and bool(torch.isfinite(out).all()), "encoder output not finite [B, D]")
+        norms = out.norm(dim=1)
+        check(bool(((norms - 1).abs() < 1e-3).all()), "encoder rows must be unit vectors")
+        row = by_bucket.setdefault(l, {"batches": 0, "ms": 0.0})
+        row["batches"] += 1
+        row["ms"] += ms
+        total_ms += ms
+        flops += b * l * layers * (24 * d * d + 4 * l * d)
+        real += int(mask.sum())
+        padded += b * l
+    for row in by_bucket.values():
+        row["ms_per_batch"] = row["ms"] / row["batches"]
+    seconds = total_ms / 1e3
+    return {
+        "batches": len(batches), "device_ms": total_ms,
+        "real_tokens": real, "padded_tokens": padded,
+        "real_tokens_per_s": real / seconds, "padded_tokens_per_s": padded / seconds,
+        "model_flops": flops, "flop_share_of_peak": flops / seconds / peak_flops,
+        "ms_per_batch_by_bucket": {str(k): v["ms_per_batch"] for k, v in sorted(by_bucket.items())},
+        "batches_by_bucket": {str(k): v["batches"] for k, v in sorted(by_bucket.items())},
+        "peak_memory_bytes": peak,
+    }
+
+
+def phase4(device, seed=0):
+    fixture = np.load(ENCODER_FIXTURE)
+    texts = [str(t) for t in fixture["texts"]]
+    bounds = {k: float(fixture[k]) for k in ("f32_max_abs", "bf16_max_abs", "bf16_min_cos")}
+    out = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        models = {}
+        for dt in ("bfloat16", "float32"):
+            t0 = time.perf_counter()
+            model = models[dt] = encoder_model(device, dt, tmp)
+            check(model.encoder.word_emb.is_cuda and model.encoder.layers[0].q_w.is_cuda,
+                  "phase 4: the encoder is not on the card")
+            want = fixture[f"embeddings_{dt}"]
+            # (a) each text in its own bucket, and all 16 in one batch
+            single = check_bounds(encode_each(model, texts), want, bounds, dt, f"phase 4a ({dt}, one text a batch)")
+            ids, mask = model.pretokenize(texts)
+            batched = check_bounds(model.encode_pretokenized(ids, mask).cpu().numpy(), want, bounds, dt,
+                                   f"phase 4a ({dt}, one batch of {len(texts)} at {ids.shape[1]})")
+            # (b) lengths path == full-mask path, bit for bit; a zero-length row is zeros
+            ids0 = np.concatenate([ids, np.zeros_like(ids[:1])])
+            mask0 = np.concatenate([mask, np.zeros_like(mask[:1])])
+            ids_t = torch.from_numpy(ids0).to(device)
+            wire = model.encoder.encode_forward_wire(ids_t, torch.from_numpy(mask0.sum(1).astype(np.int32)).to(device))
+            full = model.encoder.encode_forward(ids_t, torch.from_numpy(mask0).to(device))
+            check(torch.equal(wire, full), f"phase 4b ({dt}): lengths path and full-mask path differ")
+            check(bool((wire[-1] == 0).all()), f"phase 4b ({dt}): a zero-length row must embed to zeros")
+            out[f"fixture_{dt}"] = {"one_text_a_batch": single, "one_batch": batched,
+                                   "model_setup_s": time.perf_counter() - t0}
+            log(f"phase 4a/b ({dt}): {json.dumps(out[f'fixture_{dt}'])}")
+
+        # (c) 16,384 passages in bf16, batches of 128 sorted by length
+        rng = np.random.default_rng(seed)
+        t0 = time.perf_counter()
+        passages = synthetic_texts(rng, PASSAGES, PASSAGE_WORDS)
+        by_len = sorted(passages, key=lambda t: t.count(" "))
+        bf16 = models["bfloat16"]
+        batches = [bf16.pretokenize(by_len[i:i + ENCODE_BATCH]) for i in range(0, PASSAGES, ENCODE_BATCH)]
+        host_s = time.perf_counter() - t0
+        out["bf16_passages"] = encode_throughput(bf16, batches, BF16_PEAK_FLOPS)
+        out["bf16_passages"]["host_generate_and_tokenize_s"] = host_s
+        check(set(out["bf16_passages"]["batches_by_bucket"]) == {"64", "128", "256", "512"},
+              "phase 4c: the passages must fill every bucket from 64 to 512")
+        log("phase 4c (bf16, 16,384 passages): " + json.dumps(out["bf16_passages"]))
+        # batch_encode as a caller uses it: unsorted, host tokenization overlapping the device
+        unsorted = passages[:UNSORTED_PASSAGES]
+        t0 = time.perf_counter()
+        embs = bf16.batch_encode(unsorted, norm=True)
+        wall = time.perf_counter() - t0
+        check(embs.shape == (len(unsorted), 768) and bool(np.isfinite(embs).all()),
+              "phase 4c: batch_encode output")
+        out["bf16_batch_encode_unsorted"] = {"passages": len(unsorted), "wall_s": wall,
+                                             "passages_per_s": len(unsorted) / wall}
+        log("phase 4c batch_encode: " + json.dumps(out["bf16_batch_encode_unsorted"]))
+
+        # (d) 1,024 of the passages in f32 (every 16th by length: every bucket)
+        f32 = models["float32"]
+        picked = by_len[:: PASSAGES // F32_PASSAGES]
+        batches = [f32.pretokenize(picked[i:i + ENCODE_BATCH]) for i in range(0, len(picked), ENCODE_BATCH)]
+        out["f32_passages"] = encode_throughput(f32, batches, F32_PEAK_FLOPS)
+        log("phase 4d (f32, 1,024 passages): " + json.dumps(out["f32_passages"]))
+
+        # (e) one bucket of 128 queries, the online query-encoding cost
+        queries = synthetic_texts(rng, QUERIES, QUERY_WORDS)
+        ids, mask = bf16.pretokenize(queries)
+        q = {"bucket": int(ids.shape[1])}
+        q["device_ms"] = time_ms(lambda: bf16.encode_pretokenized(ids, mask))
+        bf16.batch_encode(queries)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            qe = bf16.batch_encode(queries, norm=True)
+        q["batch_encode_wall_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        check(qe.shape == (QUERIES, 768) and bool(np.isfinite(qe).all()), "phase 4e: query embeddings")
+        out["bf16_queries"] = q
+        log("phase 4e (bf16, 128 queries): " + json.dumps(q))
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 5: the dense entry points on the encoder
+# ----------------------------------------------------------------------
+def _solutions(sols):
+    return [{"question": s.question,
+             "ranked_passage_ids": [compute_mdhash_id(doc, "chunk-") for doc in s.docs],
+             "doc_scores": [float(x) for x in s.doc_scores],
+             "answer": s.answer} for s in sols]
+
+
+def _rag_qa(out):
+    solutions, _responses, _meta, retrieval, qa = out
+    return {"solutions": _solutions(solutions), "retrieval": retrieval, "qa": qa}
+
+
+def entry_point_record(hipporag, standard, data, counter=None):
+    """Every entry point of phase 5 on ``data`` (docs, queries, gold docs,
+    gold answers), in the fixture's form; and the kernel launches of
+    ``hipporag.retrieve`` when ``counter`` is given."""
+    docs, queries, gold_docs, gold_answers = data
+    hipporag.index(docs)
+    if counter is not None:
+        counter.reset()
+    retrieved = hipporag.retrieve(queries)
+    launches = counter.count if counter is not None else None
+    order, scores = hipporag.dense_passage_retrieval(queries[0])
+    record = {
+        "hipporag.retrieve": _solutions(retrieved),
+        "hipporag.rag_qa": _rag_qa(hipporag.rag_qa(queries, gold_docs=gold_docs, gold_answers=gold_answers)),
+        "hipporag.retrieve_dpr": _solutions(hipporag.retrieve_dpr(queries)),
+        "hipporag.rag_qa_dpr": _rag_qa(
+            hipporag.rag_qa_dpr(queries, gold_docs=gold_docs, gold_answers=gold_answers)),
+        "hipporag.dense_passage_retrieval": {
+            "query": queries[0], "order": [int(i) for i in order], "scores": [float(x) for x in scores]},
+    }
+    standard.index(docs)
+    record["standard_rag.retrieve"] = _solutions(standard.retrieve(queries))
+    record["standard_rag.rag_qa"] = _rag_qa(
+        standard.rag_qa(queries, gold_docs=gold_docs, gold_answers=gold_answers))
+    return record, launches
+
+
+def compare_records(got, want, score_atol=ENTRY_SCORE_ATOL):
+    """Rankings, answers and metrics exactly; scores within ``score_atol``.
+    Returns the largest score difference."""
+    check(sorted(got) == sorted(want), "entry points differ from the fixture's")
+    worst = 0.0
+
+    def scores_close(a, b, what):
+        nonlocal worst
+        check(len(a) == len(b), f"{what}: score count differs")
+        err = float(np.abs(np.asarray(a) - np.asarray(b)).max()) if a else 0.0
+        worst = max(worst, err)
+        check(err <= score_atol, f"{what}: scores differ by {err} > {score_atol}")
+
+    def solutions(g, w, what):
+        check(len(g) == len(w), f"{what}: query count differs")
+        for gs, ws in zip(g, w):
+            label = f"{what} {ws['question']!r}"
+            check(gs["question"] == ws["question"], f"{label}: question differs")
+            check(gs["ranked_passage_ids"] == ws["ranked_passage_ids"], f"{label}: ranked passages differ")
+            check(gs["answer"] == ws["answer"], f"{label}: answer {gs['answer']!r} != {ws['answer']!r}")
+            scores_close(gs["doc_scores"], ws["doc_scores"], label)
+
+    for key, w in want.items():
+        g = got[key]
+        if key.endswith("dense_passage_retrieval"):
+            check(g["query"] == w["query"] and g["order"] == w["order"], f"{key}: order differs")
+            scores_close(g["scores"], w["scores"], key)
+        elif isinstance(w, dict):
+            solutions(g["solutions"], w["solutions"], key)
+            check(g["retrieval"] == w["retrieval"] and g["qa"] == w["qa"],
+                  f"{key}: metrics {g['retrieval']} {g['qa']} != {w['retrieval']} {w['qa']}")
+        else:
+            solutions(g, w, key)
+    return worst
+
+
+def phase5(device):
+    with open(ENTRY_FIXTURE) as fh:
+        fixture = json.load(fh)
+    data = load_dataset("sample", os.path.join(ROOT, "data"))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        def config(sub):
+            return BaseConfig(save_dir=os.path.join(tmp, sub), **fixture["config"])
+
+        t0 = time.perf_counter()
+        hipporag = HippoRAG(config("hipporag"), device=device)
+        standard = StandardRAG(config("standard"), device=device)
+        for model in (hipporag.embedding_model, standard.embedding_model):
+            check(model.encoder.word_emb.is_cuda, "phase 5: the encoder is not on the card")
+        record, launches = entry_point_record(hipporag, standard, data, fused_topk.SCAN_LAUNCHES)
+        sync()
+        wall = time.perf_counter() - t0
+        check(launches > 0, "phase 5: retrieve did not launch the fused kernel")
+        worst = compare_records(record, fixture["record"])
+
+        t0 = time.perf_counter()
+        out_json = os.path.join(tmp, "cli.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "hipporag_tpu_torch", "--dataset", "sample", "--llm_name", "mock",
+             "--embedding_name", ENCODER, "--data_dir", os.path.join(ROOT, "data"),
+             "--save_dir", os.path.join(tmp, "cli"), "--vector_store_type", "memory",
+             "--output_json", out_json],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"phase 5: the CLI failed (rc {proc.returncode}): {proc.stderr[-3000:]}")
+        with open(out_json) as fh:
+            cli = json.load(fh)
+        check(len(cli["solutions"]) == len(data[1]) and all(s["docs"] for s in cli["solutions"]),
+              "phase 5: the CLI returned no ranked passages")
+    detail = {"entry_points_wall_s": wall, "kernel_launches": launches, "max_score_diff": worst,
+              "cli_s": cli_s, "cli_qa": cli["qa_eval"], "cli_retrieval": cli["retrieval_eval"]}
+    log(f"phase 5: {len(fixture['record'])} entry-point results on {len(data[0])} passages match the JAX "
+        f"package; " + json.dumps(detail))
+    return detail
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -513,6 +841,8 @@ def main() -> int:
     big, launches, detail = phase2(device, FULL)
     detail["phase3"] = {dt: phase3(device, dt) for dt in ("float32", "bfloat16")}
     log("phase 3: " + json.dumps(detail["phase3"]))
+    phase4(device)
+    phase5(device)
 
     f32, bf16 = big["f32"], big["bf16"]
     kernels = [{

@@ -19,6 +19,7 @@ __all__ = [
     "HippoRAG",
     "QuerySolution",
     "RetrievalResult",
+    "StandardRAG",
     "compute_mdhash_id",
     "load_dataset",
 ]
@@ -30,4 +31,8 @@ def __getattr__(name):
         from .hipporag import HippoRAG
 
         return HippoRAG
+    if name == "StandardRAG":
+        from .standard_rag import StandardRAG
+
+        return StandardRAG
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,9 +1,10 @@
-"""Carry a retrieval index from the JAX package over to the port.
+"""Carry state from the JAX package over to the port.
 
-The index (graph operator, fact/passage node maps, chunk counts) is this
-system's state, the counterpart of a model's weights. ``index_from_numpy``
-reads every leaf with ``np.asarray``, so it takes the JAX package's arrays
-as well as plain NumPy, and never imports JAX itself.
+The retrieval index (graph operator, fact/passage node maps, chunk counts)
+is this system's state; the encoder's parameter pytree is its one model.
+``index_from_numpy`` and ``encoder_params_from_jax`` read every leaf with
+``np.asarray``, so they take the JAX package's arrays as well as plain
+NumPy, and never import JAX themselves.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .embedding.encoder import BertEncoder
 from .models.retrieval import RetrievalIndex
 from .ops.pagerank import ELLGraph
 
@@ -48,3 +50,15 @@ def index_from_numpy(index, device) -> RetrievalIndex:
         num_facts=int(np.asarray(index.num_facts)),
         num_passages=int(np.asarray(index.num_passages)),
     )
+
+
+def encoder_params_from_jax(params, num_heads: int, compute_dtype: str = "bfloat16",
+                            device="cuda") -> BertEncoder:
+    """The JAX package's encoder pytree (``jax_encoder.params_random`` or
+    ``params_from_hf_bert``) as the port's encoder on ``device``."""
+    def leaf(x):
+        return np.array(x, dtype=np.float32, copy=True)
+
+    host = {k: leaf(v) for k, v in params.items() if k != "layers"}
+    host["layers"] = [{k: leaf(v) for k, v in layer.items()} for layer in params["layers"]]
+    return BertEncoder(host, num_heads, compute_dtype, device)

@@ -9,10 +9,16 @@ package, with the device work in torch on an explicit ``device``:
   scores and normalized top-k candidates (the fused CUDA kernel on a GPU)
   -> recognition-memory LLM filter (host) -> seeds -> batched PPR ->
   top-k documents.
+- **Dense retrieval** (``retrieve_dpr``, ``dense_passage_retrieval``):
+  min-max-normalized query x passage scores and a top-k on the device.
+- **IRCoT** (``retrieve_ircot``, ``answer_with_ircot``): batched rounds of
+  ``retrieve`` between reasoning steps.
 - **QA** through the JAX package's host-side ``qa_utils``.
 
-The host components (LLMs, embedders, stores, OpenIE, prompts, the rerank
-filter) are the JAX package's own modules, none of which imports JAX.
+The host components (LLMs, stores, OpenIE, prompts, the rerank filter, the
+embedders other than ``jax/``) are the JAX package's own modules, none of
+which imports JAX; ``jax/`` embedders run on the port's encoder
+(``embedding/encoder.py``) on ``device``.
 """
 
 from __future__ import annotations
@@ -26,7 +32,6 @@ import numpy as np
 import torch
 
 from hipporag_tpu.config import BaseConfig
-from hipporag_tpu.embedding import get_embedding_model
 from hipporag_tpu.evaluation import RetrievalRecall
 from hipporag_tpu.llm import get_llm
 from hipporag_tpu.openie import LLMOpenIE
@@ -44,14 +49,23 @@ from hipporag_tpu.utils.misc import (
     flatten_facts,
     text_processing,
 )
-from hipporag_tpu.utils.qa_utils import finish_rag_qa
+from hipporag_tpu.utils.qa_utils import finish_rag_qa, reason_step
 from hipporag_tpu.utils.timing import StageTimers
 
+from .embedding import get_embedding_model
 from .graph import GraphBuilder, compile_device_graph, pick_capacity
 from .models.retrieval import RetrievalIndex, graph_search_batch, rank_documents_topk
 from .ops.knn import retrieve_knn_pairs
 from .ops.pagerank import ell_caps, ell_from_coo
-from .ops.scoring import batched_scores, fact_topk, min_max_normalize
+from .ops.scoring import (
+    batched_normalized_scores,
+    batched_scores,
+    dense_topk,
+    fact_topk,
+    min_max_normalize,
+    sub_buckets,
+    topk_lower_index,
+)
 
 logger = get_logger(__name__)
 
@@ -86,8 +100,6 @@ def _check_supported(cfg: BaseConfig) -> None:
         raise NotImplementedError(f"ppr_format={cfg.ppr_format!r}: only 'ell' is ported")
     if cfg.profile_log_dir:
         raise NotImplementedError("profile_log_dir: profiling is not ported")
-    if cfg.embedding_model_name.startswith("jax/"):
-        raise NotImplementedError("jax/ embedders: the on-device encoder is not ported")
 
 
 class HippoRAG:
@@ -142,7 +154,7 @@ class HippoRAG:
         self.llm_model = self.llm
         self.extraction_llm = extraction_llm or self.llm
         self.qa_llm = qa_llm or self.llm
-        self.embedding_model = embedding_model or get_embedding_model(self.global_config)
+        self.embedding_model = embedding_model or get_embedding_model(self.global_config, self.device)
         emb_cache = os.path.join(self.working_dir, "embedding_cache.sqlite")
         if hasattr(self.embedding_model, "attach_cache"):
             self.embedding_model.attach_cache(emb_cache)
@@ -719,13 +731,12 @@ class HippoRAG:
         cfg = self.global_config
         dev = self.device
         bucket = max(1, cfg.ppr_batch_size)
-        # power-of-4 sub-buckets, as in the JAX package (same padded shapes)
-        sub_buckets = [b for b in (8, 32, 128, 512) if b < bucket] + [bucket]
+        sizes = sub_buckets(bucket)
         slices = [queries[s : s + bucket] for s in range(0, len(queries), bucket)]
 
         def prep(batch_queries):
             b_real = len(batch_queries)
-            b_pad = next(b for b in sub_buckets if b >= b_real)
+            b_pad = next(b for b in sizes if b >= b_real)
 
             qf = np.zeros((b_pad, self.fact_embeddings.shape[1]), dtype=np.float32)
             qp = np.zeros_like(qf)
@@ -823,6 +834,61 @@ class HippoRAG:
         )
 
     # ==================================================================
+    # Dense passage retrieval (no graph search)
+    # ==================================================================
+    def _dpr_normalized_scores(self, qp: np.ndarray, num_passages: int) -> torch.Tensor:
+        """Min-max-normalized [B, P_cap] query x passage scores on the device
+        (columns past ``num_passages`` are padding and score 0)."""
+        return batched_normalized_scores(
+            torch.from_numpy(qp).to(self.device), self._passage_emb_dev, num_passages,
+            self.global_config.compute_dtype,
+        )
+
+    def dense_passage_retrieval(self, query: str):
+        """Pure DPR for one query: (order over all passages, their scores)."""
+        if not self.ready_to_retrieve:
+            self.prepare_retrieval_objects()
+        self.get_query_embeddings([query])
+        num_passages = len(self.passage_node_keys)
+        qp = self.query_to_embedding["passage"][query][None]
+        scores = self._dpr_normalized_scores(qp, num_passages)[0, :num_passages]
+        vals, order = topk_lower_index(scores, num_passages)
+        return order.cpu().numpy(), vals.cpu().numpy()
+
+    def retrieve_dpr(
+        self,
+        queries: List[str],
+        num_to_retrieve: Optional[int] = None,
+        gold_docs: Optional[List[List[str]]] = None,
+    ):
+        """Dense-only retrieval over the HippoRAG index: one batched
+        query x passage product and a top-k on the device per sub-bucket."""
+        cfg = self.global_config
+        if num_to_retrieve is None:
+            num_to_retrieve = cfg.retrieval_top_k
+        if not self.ready_to_retrieve:
+            self.prepare_retrieval_objects()
+        retrieve_start = time.time()
+
+        self.get_query_embeddings(queries)
+        num_passages = len(self.passage_node_keys)
+        vals, order = dense_topk(
+            [self.query_to_embedding["passage"][q] for q in queries], self._passage_emb_dev,
+            num_passages, min(num_to_retrieve, num_passages), cfg.ppr_batch_size, cfg.compute_dtype,
+        )
+        results = [self._build_result(q, order[i], vals[i], []) for i, q in enumerate(queries)]
+        self.all_retrieval_time += time.time() - retrieve_start
+
+        if gold_docs is not None:
+            evaluator = RetrievalRecall(self.global_config)
+            overall, _ = evaluator.calculate_metric_scores(
+                gold_docs, [r.docs for r in results], RETRIEVAL_K_LIST
+            )
+            logger.info("DPR retrieval eval: %s", overall)
+            return results, overall
+        return results
+
+    # ==================================================================
     # QA
     # ==================================================================
     def qa(self, queries: List[QuerySolution]):
@@ -872,3 +938,133 @@ class HippoRAG:
             self.global_config, solutions, responses, metadata,
             overall_retrieval_result, gold_docs, gold_answers,
         )
+
+    def rag_qa_dpr(
+        self,
+        queries: Union[List[str], List[QuerySolution]],
+        gold_docs: Optional[List[List[str]]] = None,
+        gold_answers: Optional[List[List[str]]] = None,
+    ):
+        """rag_qa over the dense retriever."""
+        overall_retrieval_result = None
+        if not isinstance(queries[0], QuerySolution):
+            if gold_docs is not None:
+                queries, overall_retrieval_result = self.retrieve_dpr(queries, gold_docs=gold_docs)
+            else:
+                queries = self.retrieve_dpr(queries)
+
+        solutions, responses, metadata = self.qa(queries)
+        return finish_rag_qa(
+            self.global_config, solutions, responses, metadata,
+            overall_retrieval_result, gold_docs, gold_answers,
+            log_label="DPR QA",
+        )
+
+    # ==================================================================
+    # IRCoT iterative retrieval
+    # ==================================================================
+    def retrieve_ircot(
+        self,
+        queries: List[str],
+        max_qa_steps: int,
+        num_to_retrieve: Optional[int] = None,
+        gold_docs: Optional[List[List[str]]] = None,
+    ):
+        if max_qa_steps < 1:
+            raise ValueError("max_qa_steps must be at least 1.")
+        cfg = self.global_config
+        if (
+            max_qa_steps > 1
+            and cfg.dataset is not None
+            and not self.prompt_template_manager.is_template_name_valid(f"ircot_{cfg.dataset}")
+        ):
+            # a multi-step run for a named dataset must not reason with the
+            # generic demos; dataset=None takes the generic `ircot` template
+            raise ValueError(
+                f"No IRCoT template 'ircot_{cfg.dataset}' for dataset "
+                f"'{cfg.dataset}'; multi-step IRCoT (max_qa_steps > 1) "
+                "requires a dataset-specific template under "
+                "hipporag_tpu/prompts/templates/."
+            )
+        if num_to_retrieve is None:
+            num_to_retrieve = cfg.retrieval_top_k
+
+        # each round runs ONE batched retrieve for every still-active query
+        # and fans the reasoning LLM calls out across threads; a query's
+        # thoughts depend only on its own retrieval history
+        n = len(queries)
+        steps = self.retrieve(queries, num_to_retrieve=num_to_retrieve)
+        merged_scores = [dict(zip(s.docs, s.doc_scores.tolist())) for s in steps]
+        merged_meta = [dict(zip(s.docs, s.doc_metadata or [])) for s in steps]
+        thoughts: List[List[str]] = [[] for _ in range(n)]
+        active = list(range(n))
+
+        for _ in range(1, max_qa_steps):
+            if not active:
+                break
+
+            def _reason(i):
+                ranked = sorted(merged_scores[i], key=merged_scores[i].get, reverse=True)
+                return reason_step(
+                    cfg.dataset, self.prompt_template_manager, queries[i],
+                    ranked[:num_to_retrieve], thoughts[i], self.qa_llm,
+                )
+
+            new_thoughts = _fan_out(_reason, active)
+
+            followups = []
+            still_active = []
+            for i, thought in zip(active, new_thoughts):
+                thoughts[i].append(thought)
+                if "So the answer is:" not in thought:
+                    followups.append(thought)
+                    still_active.append(i)
+            active = still_active
+            if not active:
+                break
+
+            steps = self.retrieve(followups, num_to_retrieve=num_to_retrieve)
+            for i, step in zip(active, steps):
+                for doc, score in zip(step.docs, step.doc_scores.tolist()):
+                    merged_scores[i][doc] = max(merged_scores[i].get(doc, float("-inf")), score)
+                merged_meta[i].update(dict(zip(step.docs, step.doc_metadata or [])))
+
+        results = []
+        for i, query in enumerate(queries):
+            ranked_items = sorted(merged_scores[i].items(), key=lambda kv: kv[1], reverse=True)
+            results.append(
+                QuerySolution(
+                    question=query,
+                    docs=[d for d, _ in ranked_items],
+                    doc_scores=np.asarray([s for _, s in ranked_items]),
+                    thoughts=thoughts[i],
+                    doc_metadata=[merged_meta[i].get(d, {}) for d, _ in ranked_items],
+                )
+            )
+
+        if gold_docs is None:
+            return results
+        evaluator = RetrievalRecall(self.global_config)
+        overall, _ = evaluator.calculate_metric_scores(
+            gold_docs, [r.docs for r in results], RETRIEVAL_K_LIST
+        )
+        return results, overall
+
+    def answer_with_ircot(
+        self,
+        queries: List[str],
+        gold_docs=None,
+        gold_answers=None,
+        max_qa_steps: int = 2,
+    ):
+        retrieved = self.retrieve_ircot(queries, max_qa_steps=max_qa_steps, gold_docs=gold_docs)
+        ircot_retrieval_eval = None
+        if gold_docs is not None:
+            retrieved, ircot_retrieval_eval = retrieved
+        out = self.rag_qa(retrieved, gold_docs=gold_docs, gold_answers=gold_answers)
+        if gold_answers is not None and ircot_retrieval_eval is not None:
+            # rag_qa got QuerySolutions, so its retrieval-eval slot is None;
+            # put in the IRCoT retrieval eval the caller asked for
+            solutions, responses, metadata, _, qa_eval = out
+            return solutions, responses, metadata, ircot_retrieval_eval, qa_eval
+        return out

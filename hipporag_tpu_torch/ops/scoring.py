@@ -8,7 +8,12 @@ streamed fused kernel (``ops/fused_topk.py``) on CUDA.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+# padded query-batch sizes below a bucket, as in the JAX package: a bounded
+# [B, N] score matrix and a handful of shapes whatever the query count
+_SUB_BUCKETS = (8, 32, 128, 512)
 
 
 def topk_lower_index(x: torch.Tensor, k: int):
@@ -85,6 +90,34 @@ def score_and_topk(
     scores = batched_normalized_scores(queries, keys, valid_n, compute_dtype)
     values, indices = topk_lower_index(scores, k)
     return scores, values, indices
+
+
+def sub_buckets(bucket: int) -> list:
+    """Padded batch sizes for slices of up to ``bucket`` queries."""
+    return [b for b in _SUB_BUCKETS if b < bucket] + [bucket]
+
+
+def dense_topk(query_rows, passages: torch.Tensor, num_passages: int, k: int, bucket: int,
+               compute_dtype: str = "float32"):
+    """Dense retrieval of ``query_rows`` (a sequence of [D] host vectors)
+    over the first ``num_passages`` rows of ``passages``: per slice of
+    ``bucket`` queries, padded to a :func:`sub_buckets` size, min-max
+    normalized scores and their top ``k`` (ties to the lower index).
+    Returns host arrays (values [n, k], indices [n, k])."""
+    bucket = max(1, bucket)
+    sizes = sub_buckets(bucket)
+    vals, idx = [np.zeros((0, k), np.float32)], [np.zeros((0, k), np.int64)]
+    for off in range(0, len(query_rows), bucket):
+        part = query_rows[off : off + bucket]
+        q = np.zeros((next(b for b in sizes if b >= len(part)), passages.shape[1]), np.float32)
+        q[: len(part)] = part
+        scores = batched_normalized_scores(
+            torch.from_numpy(q).to(passages.device), passages, num_passages, compute_dtype
+        )[: len(part), :num_passages]
+        v, i = topk_lower_index(scores, k)
+        vals.append(v.cpu().numpy())
+        idx.append(i.cpu().numpy())
+    return np.concatenate(vals), np.concatenate(idx)
 
 
 def fused_topk_route(b: int, n: int, device) -> bool:

@@ -14,9 +14,14 @@ sampled edges, 262,144 facts and 32,768 passages at D = 4096, a bucket of
   and memset intervals), the span from the first to the last device
   activity, the idle share of that span, and device time by kernel name.
 
+With ``--encoder`` it profiles instead one batch of the on-device encoder
+at BERT-base width (``chip_smoke.ENCODER``, bf16 compute): 128 passages of
+500 words, the 512-token bucket that takes most of ``chip_smoke.py``
+phase 4(c)'s time.
+
 Usage, from the repository root on a machine with one CUDA GPU (no JAX):
 
-    python3 scripts/profile_torch_bucket.py [--trace build/profile/bucket.json] [--top 12]
+    python3 scripts/profile_torch_bucket.py [--encoder] [--trace build/profile/bucket.json] [--top 12]
 
 The chrome trace goes to ``--trace``; the last line of standard output is
 one JSON object with every number.
@@ -29,8 +34,10 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,22 +83,22 @@ def merged_busy_us(intervals) -> float:
     return busy
 
 
-def device_profile(bucket, trace_path: str, top: int) -> dict:
-    """One bucket under torch.profiler, read back from its chrome trace."""
+def device_profile(fn, trace_path: str, top: int, label: str = "bucket") -> dict:
+    """One call of ``fn`` under torch.profiler, read back from its chrome trace."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        with record_function("bucket"):
-            cs.run_bucket(bucket)
+        with record_function(label):
+            fn()
     os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as fh:
         events = json.load(fh)["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-    host = [e for e in events if e.get("ph") == "X" and e.get("name") == "bucket"]
+    host = [e for e in events if e.get("ph") == "X" and e.get("name") == label]
     out = {"trace": trace_path, "device_activities": len(dev),
            "host_span_ms": host[0]["dur"] / 1e3 if host else None}
     if not dev:
@@ -124,11 +131,33 @@ def profile_bucket(device, sizes, trace_path: str, top: int) -> dict:
     result = {
         "stage_ms": stage_times(bucket),
         "ppr_iters_per_tile": iters[::128].tolist(),
-        "profile": device_profile(bucket, trace_path, top),
+        "profile": device_profile(lambda: cs.run_bucket(bucket), trace_path, top),
     }
     for name, ms in result["stage_ms"].items():
         cs.log(f"  {name:24s} {ms:10.3f} ms")
-    prof = result["profile"]
+    log_profile(result["profile"])
+    return result
+
+
+def profile_encoder(device, trace_path: str, top: int, words: int = 500, seed: int = 0) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        model = cs.encoder_model(device, "bfloat16", tmp)
+    texts = cs.synthetic_texts(np.random.default_rng(seed), cs.ENCODE_BATCH, (words, words))
+    ids, mask = model.pretokenize(texts)
+
+    def run():
+        model.encode_pretokenized(ids, mask)
+        cs.sync()
+
+    result = {"batch": int(ids.shape[0]), "bucket": int(ids.shape[1]),
+              "device_ms": cs.time_ms(lambda: model.encode_pretokenized(ids, mask)),
+              "profile": device_profile(run, trace_path, top, label="encoder")}
+    cs.log(f"encoder batch {result['batch']} x {result['bucket']}: {result['device_ms']:.3f} ms")
+    log_profile(result["profile"])
+    return result
+
+
+def log_profile(prof: dict) -> None:
     if prof["device_busy_ms"] is None:
         cs.log("profiler: no device activity in the trace (device time not measured)")
     else:
@@ -136,14 +165,15 @@ def profile_bucket(device, sizes, trace_path: str, top: int) -> dict:
                f"{prof['device_span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}")
         for row in prof["by_kernel"]:
             cs.log(f"  {row['ms']:9.3f} ms {row['share_of_busy']:7.2%} x{row['calls']:<5d} {row['name']}")
-    return result
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--trace", default=os.path.join(ROOT, "build", "profile", "bucket.json"))
+    ap.add_argument("--trace", default=None, help="default build/profile/{bucket,encoder}.json")
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--encoder", action="store_true", help="profile one encoder batch instead")
     args = ap.parse_args()
+    trace = args.trace or os.path.join(ROOT, "build", "profile", "encoder.json" if args.encoder else "bucket.json")
     if not torch.cuda.is_available():
         print("profile_torch_bucket: no CUDA device", file=sys.stderr)
         return 1
@@ -152,7 +182,11 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     cs.log(smi)
-    result = profile_bucket(torch.device("cuda", 0), cs.FULL, args.trace, args.top)
+    device = torch.device("cuda", 0)
+    if args.encoder:
+        result = profile_encoder(device, trace, args.top)
+    else:
+        result = profile_bucket(device, cs.FULL, trace, args.top)
     result["gpu"] = smi
     print(json.dumps(result), flush=True)
     return 0

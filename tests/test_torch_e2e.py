@@ -6,7 +6,8 @@ ranked passages must be identical and EM/F1 equal. The same run of the JAX
 package is recorded in ``tests/fixtures/torch_port_sample_expected.json``,
 which ``chip_smoke.py`` holds the port to on the GPU; a test here
 regenerates it so it cannot go stale. A subprocess with jax, pandas,
-pyarrow, httpx and filelock blocked shows the port runs without them.
+pyarrow, httpx and filelock blocked shows the port runs without them, with
+the mock embedder and with the port's encoder.
 """
 
 import json
@@ -111,6 +112,8 @@ def test_bfloat16_fused_route_matches_fixture(tmp_path, monkeypatch):
 
 
 def test_port_runs_without_jax_pandas_pyarrow_httpx_filelock(tmp_path):
+    """The mock embedder, and the port's encoder (``jax/random-64x2``)
+    through ``HippoRAG.retrieve``, ``retrieve_dpr`` and ``StandardRAG``."""
     code = f"""
 import sys
 for m in {BLOCKED!r}:
@@ -121,12 +124,19 @@ torch.set_num_threads(1)
 import hipporag_tpu_torch
 from hipporag_tpu.datasets import load_dataset
 docs, queries, _, _ = load_dataset("sample", {os.path.join(ROOT, "data")!r})
-cfg = hipporag_tpu_torch.BaseConfig(llm_name="mock", embedding_model_name="mock",
-                                    vector_store_type="memory", save_dir={str(tmp_path)!r})
-rag = hipporag_tpu_torch.HippoRAG(cfg, device="cpu")
-rag.index(docs)
-sols = rag.retrieve(queries)
-assert len(sols) == len(queries) and all(s.docs for s in sols)
+for name in ("mock", "jax/random-64x2"):
+    cfg = hipporag_tpu_torch.BaseConfig(llm_name="mock", embedding_model_name=name,
+                                        vector_store_type="memory", save_dir={str(tmp_path)!r} + "/" + name)
+    rag = hipporag_tpu_torch.HippoRAG(cfg, device="cpu")
+    rag.index(docs)
+    sols = rag.retrieve(queries)
+    assert len(sols) == len(queries) and all(s.docs for s in sols)
+    if name != "mock":
+        assert type(rag.embedding_model).__name__ == "TorchEncoderEmbeddingModel"
+        assert all(s.docs for s in rag.retrieve_dpr(queries))
+        std = hipporag_tpu_torch.StandardRAG(cfg, device="cpu")
+        std.index(docs)
+        assert all(s.docs for s in std.retrieve(queries))
 assert not any(m in sys.modules and sys.modules[m] is not None for m in {BLOCKED!r})
 print("OK", len(sols))
 """
@@ -140,8 +150,7 @@ print("OK", len(sols))
 
 @pytest.mark.parametrize(
     "override",
-    [{"mesh_shape": (1, 2)}, {"ppr_format": "coo"}, {"profile_log_dir": "trace"},
-     {"embedding_model_name": "jax/random-64x2"}],
+    [{"mesh_shape": (1, 2)}, {"ppr_format": "coo"}, {"profile_log_dir": "trace"}],
 )
 def test_unported_config_raises(tmp_path, override):
     cfg = _config(tmp_path)
