@@ -5,7 +5,7 @@
 
 from the repository root, on a machine with a CUDA GPU, nvcc and PyTorch
 built for CUDA (no JAX needed). It builds the hand-written CUDA kernel from
-``hipporag_tpu_torch/csrc`` and runs three phases; any failure ends the run
+``hipporag_tpu_torch/csrc`` and runs six phases; any failure ends the run
 with a non-zero exit:
 
 1. Kernel vs plain: ``fused_score_topk`` (CUDA pass A) against
@@ -44,9 +44,23 @@ with a non-zero exit:
    ``tests/fixtures/torch_port_encoder_sample_expected.json`` (the JAX
    package on the CPU), with the kernel launched by ``retrieve``; then the
    CLI, ``python -m hipporag_tpu_torch``, once as a subprocess.
+6. Serving: 10,000 synthetic passages (numpy seed; Zipf-skewed entities)
+   indexed by ``HippoRAG(device="cuda")``, served by ``RetrievalService``
+   through the native C++ front end (built from the checkout) to 16
+   closed-loop HTTP clients: 256 distinct queries rank as ``rag.retrieve``
+   does (near ties may trade places), then 2,048 ``/retrieve`` (mixed top_k,
+   hot queries) and 128 ``/qa`` with one ``/index`` of 64 new passages and
+   one ``/delete`` of 32 in the middle; every request completes or is shed,
+   new passages are found, deleted ones never served; then 256 requests on
+   the stdlib front end. Queries/s, p50/p99 latency per front end, batch
+   sizes, dedup, cache hits, K1 launches and peak memory are printed. Last,
+   index -> delete -> retrieve -> re-index -> retrieve on the sample corpus
+   is held to ``tests/fixtures/torch_port_lifecycle_expected.json`` (the JAX
+   package) in float32 and bfloat16.
 
 The line before the last is a JSON record of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Neither JAX nor ``hipporag_tpu`` may be
+imported by then.
 """
 
 from __future__ import annotations
@@ -109,6 +123,7 @@ SWEEP_BATCHES = (8, 32, 128)
 # phase 4: BERT-base width; NVIDIA's dense peaks of one H100 SXM at 700 W
 ENCODER = "jax/random-768x12"
 BF16_PEAK_FLOPS, F32_PEAK_FLOPS = 989e12, 67e12
+TF32_PEAK_FLOPS, HBM_BYTES_PER_S = 495e12, 3.35e12
 PASSAGES, PASSAGE_WORDS, ENCODE_BATCH = 16_384, (48, 500), 128
 UNSORTED_PASSAGES = 2_048
 F32_PASSAGES, QUERIES, QUERY_WORDS = 1_024, 128, (8, 24)
@@ -116,6 +131,33 @@ F32_PASSAGES, QUERIES, QUERY_WORDS = 1_024, 128, (8, 24)
 # lie close together, which magnifies the encoder's ~1e-7 differences to
 # ~1e-5; rankings, answers and metrics are compared exactly
 ENTRY_SCORE_ATOL = 1e-4
+# phase 6: the delete lifecycle on the sample corpus, held to the JAX package
+LIFECYCLE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_lifecycle_expected.json")
+LIFECYCLE_CONFIG = dict(llm_name="mock", embedding_model_name="mock", vector_store_type="memory")
+LIFECYCLE_DELETED = 3
+# rankings are compared exactly; scores of the port against the JAX package's.
+# With bf16 keys the fused top-k keeps the queries in f32 (as the TPU kernel
+# does) where the JAX package's plain CPU path rounds them to bf16 too: the
+# doc scores then differ by ~1e-5
+LIFECYCLE_SCORE_ATOL = {"float32": 1e-5, "bfloat16": 1e-4}
+# phase 6: 10,000 passages (the HippoRAG 2 paper's corpora hold about 4k-23k),
+# served to 16 closed-loop clients. The embedder is the hashing n-gram model
+# at BERT-base width: the random-weight encoder maps every text to nearly the
+# same direction, which puts every entity pair over the synonymy threshold
+# and leaves a query hardly more likely to find its own passage than chance.
+SERVE = dict(passages=10_000, entity_pool=20_000, retrieve_requests=2_048, qa_requests=128,
+             parity_queries=256, stdlib_requests=256, new_passages=64, deleted=32, clients=16)
+SERVE_CONFIG = dict(llm_name="mock", embedding_model_name="hashing", embedding_dim=768,
+                    vector_store_type="memory", embedding_batch_size=256)
+ZIPF_S = 1.1
+SERVE_SENTENCES, SERVE_WORDS, SERVE_ENTITIES = (3, 6), (10, 25), (2, 4)
+HOT_QUERIES, HOT_EVERY, TOP_KS = 16, 8, (5, 20, 200)
+SERVE_MAX_WAIT_MS, SERVE_CACHE = 8.0, 256
+NEW_PASSAGE_PROBES = 8
+# PPR stops per 128-column tile, so a query's iteration count depends on its
+# batch-mates: served and direct scores may differ by about ppr_tol, and
+# passages that close may trade places
+PARITY_ATOL = 2e-6
 
 
 def scan_delta(q, keys):
@@ -201,6 +243,21 @@ def compare_topk(q, keys, valid_n, k):
     dots = (q.double()[:, None, :] * keys[idx[:, :kv].long()].double()).sum(-1)
     torch.testing.assert_close(raw[:, :kv].double(), dots, rtol=1e-5, atol=1e-5)
     return err
+
+
+def scan_bound(q, keys):
+    """The least time pass A could take on one H100 at 700 W: the larger of
+    its bytes (each key and query read once, the tile maxima and minima
+    written once) over the HBM rate and its products (2 B N D flops) over
+    the TF32 tensor-core peak; also the time of the three TF32 products the
+    kernel runs for f32 keys (two for bf16 keys)."""
+    n_tiles = -(-keys.shape[0] // fused_topk.TILE_N)
+    moved = keys.numel() * keys.element_size() + q.numel() * 4 + 2 * q.shape[0] * n_tiles * 4
+    flops = 2 * q.shape[0] * keys.shape[0] * keys.shape[1]
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / TF32_PEAK_FLOPS * 1e3
+    terms = 2 if keys.dtype == torch.bfloat16 else 3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "split_products_ms": terms * ops_ms}
 
 
 def _scan_args(q, keys):
@@ -309,7 +366,7 @@ def phase1_big(qf, fact_emb, num_facts, k):
             ("fused_topk_kernel", lambda: fused_topk.fused_score_topk(qf, keys, num_facts, k)),
             ("fused_topk_plain_scan", lambda: fused_topk.fused_score_topk_reference(qf, keys, num_facts, k)),
             ("score_and_topk", lambda: score_and_topk(qf, keys, num_facts, k)),
-        ):
+        ) + ((("library_matmul", lambda: torch.matmul(qf, keys.T)),) if tag == "f32" else ()):
             times[name] = [time_ms(fn)]
         for name in ("scan_kernel", "scan_plain"):
             fn = (fused_topk.scan_tiles if name == "scan_kernel" else fused_topk.scan_tiles_reference)
@@ -317,9 +374,10 @@ def phase1_big(qf, fact_emb, num_facts, k):
         ms = {name: float(np.mean(v)) for name, v in times.items()}
         delta = scan_delta(qs, ks)
         check(err <= delta, f"phase 1 ({tag} keys): scan max|err| {err} above the stated bound {delta}")
+        bound = scan_bound(qf, keys)
         log(f"phase 1 at B={qf.shape[0]} N={keys.shape[0]} D={keys.shape[1]} k={k}, {tag} keys: "
-            f"scan max|err| {err:.3e} (bound {delta:.3e}); ms {json.dumps(ms)}")
-        out[tag] = dict(err=err, delta=delta, ms=ms)
+            f"scan max|err| {err:.3e} (bound {delta:.3e}); ms {json.dumps(ms)}; roofline {json.dumps(bound)}")
+        out[tag] = dict(err=err, delta=delta, ms=ms, bound=bound)
 
     sweep = {}
     for b in SWEEP_BATCHES:
@@ -770,6 +828,35 @@ def compare_records(got, want, score_atol=ENTRY_SCORE_ATOL):
     return worst
 
 
+def lifecycle_record(rag, data):
+    """index -> delete -> retrieve -> re-index -> retrieve on the sample
+    ``data``: the ranked passages and graph counts after each retrieve."""
+    docs, queries = data[0], data[1]
+    rag.index(docs)
+    rag.delete(docs[:LIFECYCLE_DELETED])
+    record = {"after_delete": {"solutions": _solutions(rag.retrieve(queries)), "graph": rag.get_graph_info()}}
+    rag.index(docs)
+    record["after_reindex"] = {"solutions": _solutions(rag.retrieve(queries)), "graph": rag.get_graph_info()}
+    return record
+
+
+def compare_lifecycle(got, want, score_atol):
+    """Rankings and graph counts exactly, scores within ``score_atol``."""
+    check(sorted(got) == sorted(want), "lifecycle steps differ from the fixture's")
+    worst = 0.0
+    for step, w in want.items():
+        g = got[step]
+        check(g["graph"] == w["graph"], f"lifecycle {step}: graph {g['graph']} != {w['graph']}")
+        check(len(g["solutions"]) == len(w["solutions"]), f"lifecycle {step}: query count differs")
+        for gs, ws in zip(g["solutions"], w["solutions"]):
+            check(gs["question"] == ws["question"] and gs["ranked_passage_ids"] == ws["ranked_passage_ids"],
+                  f"lifecycle {step} {ws['question']!r}: ranked passages differ from the JAX package")
+            err = float(np.abs(np.asarray(gs["doc_scores"]) - np.asarray(ws["doc_scores"])).max())
+            worst = max(worst, err)
+            check(err <= score_atol, f"lifecycle {step} {ws['question']!r}: scores differ by {err}")
+    return worst
+
+
 def phase5(device):
     with open(ENTRY_FIXTURE) as fh:
         fixture = json.load(fh)
@@ -812,6 +899,433 @@ def phase5(device):
     return detail
 
 
+# ----------------------------------------------------------------------
+# Phase 6: the served path over a synthetic 10,000-passage index
+# ----------------------------------------------------------------------
+_NAME_SYLLABLES = ("ka lo ve mi dra sen tu bor li qua ren sta fa zel mor ni pe ri gu hal "
+                   "wy cor bal dun gar hol jor kel lan mar nor par rus sol tam var wen yor").split()
+_FILLER_SYLLABLES = "ab ec id ob ut an en il om up ar es ir os ul ax ev im oz ud".split()
+
+
+def _words(rng, syllables, count, parts=(2, 4)):
+    """``count`` words of 2-3 syllables."""
+    lengths = rng.integers(*parts, count)
+    picks = rng.integers(0, len(syllables), int(lengths.sum()))
+    cuts = np.concatenate([[0], np.cumsum(lengths)])
+    return ["".join(syllables[j] for j in picks[cuts[i]:cuts[i + 1]]) for i in range(count)]
+
+
+def _names(rng, count):
+    """``count`` distinct capitalized two-word names."""
+    out = {}
+    while len(out) < count:
+        first = _words(rng, _NAME_SYLLABLES, 2 * count)
+        for a, b in zip(first[::2], first[1::2]):
+            out.setdefault(f"{a.capitalize()} {b.capitalize()}", None)
+            if len(out) == count:
+                break
+    return list(out)
+
+
+def _sentence(rng, entities, fillers):
+    """``entities`` (the head first) in one sentence of 10-25 words, each
+    pair apart by at least one lowercase filler word."""
+    n_fill = max(len(entities), int(rng.integers(SERVE_WORDS[0], SERVE_WORDS[1] + 1)) - 2 * len(entities))
+    gaps = 1 + rng.multinomial(n_fill - len(entities), [1 / len(entities)] * len(entities))
+    words = []
+    for ent, gap in zip(entities, gaps):
+        words.append(ent)
+        words.extend(fillers[j] for j in rng.integers(0, len(fillers), gap))
+    return " ".join(words) + "."
+
+
+class ServeCorpus:
+    """Passages of a title line and 3-6 sentences; each sentence names 2-4
+    two-word entities drawn Zipf-skewed from a pool, so the mock OpenIE
+    builds a graph with hubs and multi-hop paths. Every passage opens with
+    its title, an entity of its own."""
+
+    def __init__(self, seed, passages, pool):
+        self.rng = np.random.default_rng(seed)
+        self.pool = _names(self.rng, pool + passages + 4 * SERVE["new_passages"])
+        self.titles = self.pool[pool:]
+        self.pool = self.pool[:pool]
+        self.fillers = _words(self.rng, _FILLER_SYLLABLES, 2_000)
+        weights = 1.0 / np.arange(1, pool + 1) ** ZIPF_S
+        self.weights = weights / weights.sum()
+        self.docs, self.entities = [], []
+        for title in self.titles[:passages]:
+            self._add(title, [])
+
+    def _add(self, title, own):
+        rng = self.rng
+        n_sent = int(rng.integers(SERVE_SENTENCES[0], SERVE_SENTENCES[1] + 1))
+        counts = rng.integers(SERVE_ENTITIES[0], SERVE_ENTITIES[1] + 1, n_sent)
+        drawn = rng.choice(len(self.pool), int(counts.sum()), p=self.weights)
+        sentences, names, at = [], {title: None, **dict.fromkeys(own)}, 0
+        for i, c in enumerate(counts):
+            ents = [self.pool[j] for j in drawn[at:at + c]]
+            at += c
+            ents[0] = title if i == 0 else ents[0]
+            ents = list(dict.fromkeys(own + ents if i else ents[:1] + own + ents[1:]))
+            names.update(dict.fromkeys(ents))
+            sentences.append(_sentence(rng, ents, self.fillers))
+        self.docs.append(title + "\n" + " ".join(sentences))
+        self.entities.append(list(names))
+
+    def add_new(self, count):
+        """``count`` passages whose titles and own entity occur nowhere else."""
+        start = len(self.docs)
+        fresh = self.titles[len(self.docs):]
+        for i in range(count):
+            self._add(fresh[2 * i], [fresh[2 * i + 1]])
+        return list(range(start, start + count))
+
+    def query(self, i):
+        """A question naming one or two entities of passage ``i``."""
+        ents = self.entities[i]
+        pick = self.rng.choice(len(ents), min(len(ents), int(self.rng.integers(1, 3))), replace=False)
+        if len(pick) == 1:
+            return f"Tell me about {ents[pick[0]]}."
+        return f"What connects {ents[pick[0]]} and {ents[pick[1]]}?"
+
+
+def _post(conn, path, payload):
+    """POST JSON on a keep-alive connection, reconnecting once if the server
+    closed it; returns (status, parsed body)."""
+    import http.client
+
+    body = json.dumps(payload)
+    for attempt in (0, 1):
+        try:
+            conn.request("POST", path, body, {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        except (http.client.RemoteDisconnected, ConnectionResetError, BrokenPipeError):
+            conn.close()
+            if attempt:
+                raise
+
+
+def run_clients(port, requests, clients, on_done=None):
+    """Closed-loop HTTP clients: each thread posts the next request and waits
+    for its answer. Returns one (start s, end s, status, body) per request."""
+    import http.client
+    import threading
+
+    records = [None] * len(requests)
+    lock = threading.Lock()
+    cursor = [0]
+
+    def worker():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            while True:
+                with lock:
+                    i = cursor[0]
+                    cursor[0] += 1
+                if i >= len(requests):
+                    return
+                path, payload = requests[i]
+                t0 = time.perf_counter()
+                status, body = _post(conn, path, payload)
+                records[i] = (t0, time.perf_counter(), status, body)
+                if on_done is not None:
+                    on_done()
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=worker, name=f"client-{c}") for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(all(r is not None for r in records), "phase 6: a client died before its requests completed")
+    return records
+
+
+def latency_ms(records):
+    ms = sorted((end - start) * 1e3 for start, end, _s, _b in records)
+    if not ms:
+        return None
+    return {"p50": ms[len(ms) // 2], "p99": ms[min(len(ms) - 1, int(len(ms) * 0.99))],
+            "mean": float(np.mean(ms)), "n": len(ms)}
+
+
+def parity_trades(requests, records, direct, atol):
+    """Served rankings against ``rag.retrieve`` of the same queries: a
+    position may hold another passage only where the two passages' direct
+    scores lie within ``atol``; every served score within ``atol`` of its
+    direct score. Returns the number of traded positions."""
+    trades = 0
+    for (_path, payload), (_t0, _t1, status, body), sol in zip(requests, records, direct):
+        check(status == 200, f"phase 6 parity: status {status} for {payload['query']!r}")
+        want = dict(zip(sol.docs, sol.doc_scores.tolist()))
+        check(len(body["docs"]) == min(payload["top_k"], len(sol.docs)),
+              f"phase 6 parity: {len(body['docs'])} docs for top_k {payload['top_k']}")
+        for pos, (doc, score) in enumerate(zip(body["docs"], body["doc_scores"])):
+            check(doc in want, f"phase 6 parity: a served passage is not in the direct ranking of {payload['query']!r}")
+            check(abs(score - want[doc]) <= atol,
+                  f"phase 6 parity: score {score} vs direct {want[doc]} for {payload['query']!r}")
+            if doc != sol.docs[pos]:
+                trades += 1
+                check(abs(want[doc] - float(sol.doc_scores[pos])) <= atol,
+                      f"phase 6 parity: rank {pos} of {payload['query']!r} differs beyond a near tie")
+    return trades
+
+
+def serve_traffic(corpus, sizes, hot):
+    """The main window's requests: ``/retrieve`` with mixed top_k (every
+    eighth a hot query) and ``/qa`` spread evenly among them."""
+    rng = corpus.rng
+    n_ret, n_qa = sizes["retrieve_requests"], sizes["qa_requests"]
+    qa_every = max(1, n_ret // max(1, n_qa))
+    out, n_asked = [], 0
+    for i in range(n_ret):
+        q = hot[(i // HOT_EVERY) % len(hot)] if i % HOT_EVERY == 0 else corpus.query(
+            int(rng.integers(0, sizes["passages"])))
+        out.append(("/retrieve", {"query": q, "top_k": TOP_KS[i % len(TOP_KS)]}))
+        if n_asked < n_qa and i % qa_every == qa_every - 1:
+            out.append(("/qa", {"query": corpus.query(int(rng.integers(0, sizes["passages"]))), "top_k": 5}))
+            n_asked += 1
+    return out
+
+
+def engine_seconds(rag):
+    """The orchestrator's cumulative retrieve stage clocks (host wall)."""
+    return {"retrieve": rag.all_retrieval_time, "query_embed": rag.embed_time, "fact_topk": rag.topk_time,
+            "rerank": rag.rerank_time, "graph_search_and_rank": rag.ppr_time}
+
+
+def short_window(port, corpus, sizes, hot, gone, what):
+    """``stdlib_requests`` retrieve-only requests (no /qa, no mutation)."""
+    requests = serve_traffic(corpus, {**sizes, "retrieve_requests": sizes["stdlib_requests"], "qa_requests": 0}, hot)
+    t0 = time.perf_counter()
+    records = run_clients(port, requests, sizes["clients"])
+    wall = time.perf_counter() - t0
+    check(all(r[2] in (200, 503) for r in records), f"phase 6: {what} front end status")
+    ok = [r for r in records if r[2] == 200]
+    check(not any(gone & set(r[3]["docs"]) for r in ok), f"phase 6: a deleted passage appears on the {what} front end")
+    return {"wall_s": wall, "requests": len(records), "shed": len(records) - len(ok),
+            "retrieve_per_s": len(ok) / wall, "retrieve_latency_ms": latency_ms(ok)}
+
+
+def index_corpus(rag, docs):
+    """Index ``docs`` and build the device state; wall seconds by stage."""
+    t0 = time.perf_counter()
+    rag.index(docs)
+    index_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rag.prepare_retrieval_objects()
+    sync()
+    totals = dict(rag.timers.totals)
+    knn = totals.get("index/synonymy_knn", 0.0)
+    return {
+        "openie_s": totals.get("index/openie", 0.0),
+        "encoding_s": sum(totals.get(f"index/embed_{k}", 0.0) for k in ("chunks", "entities", "facts")),
+        "synonymy_knn_s": knn,
+        "graph_build_s": totals.get("index/graph_build", 0.0) - knn,
+        "prepare_retrieval_objects_s": time.perf_counter() - t0,
+        "index_wall_s": index_s,
+    }
+
+
+def phase6(device, sizes=None, seed=0):
+    """Index the synthetic corpus, check served against direct rankings,
+    then drive the native and the stdlib front ends with concurrent clients
+    while ``/index`` and ``/delete`` mutate the live index."""
+    import threading
+
+    from hipporag_tpu_torch.serving import RetrievalService
+    from hipporag_tpu_torch.serving.http_server import make_server
+    from hipporag_tpu_torch.serving.native_http import make_native_server
+
+    sizes = sizes or SERVE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    corpus = ServeCorpus(seed, sizes["passages"], sizes["entity_pool"])
+    out = {"passages": sizes["passages"], "corpus_generate_s": time.perf_counter() - t0}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        cfg = BaseConfig(save_dir=tmp, **SERVE_CONFIG)
+        rag = HippoRAG(cfg, device=device)
+        docs = list(corpus.docs)
+        out["index"] = index_corpus(rag, docs)
+        out["graph"] = rag.get_graph_info()
+        log(f"phase 6 index: {len(docs)} passages; " + json.dumps(out["index"]) + "; graph " + json.dumps(out["graph"]))
+        check(out["graph"]["num_passage_nodes"] == len(docs), "phase 6: passages missing from the graph")
+
+        # parity window: the direct batch path first, then the same distinct queries served
+        # (passages share hub entities, so draws repeat a query now and then)
+        parity = {}
+        while len(parity) < sizes["parity_queries"]:
+            parity.setdefault(corpus.query(int(corpus.rng.integers(0, sizes["passages"]))), None)
+        parity = list(parity)
+        parity_requests = [("/retrieve", {"query": q, "top_k": TOP_KS[i % len(TOP_KS)]})
+                           for i, q in enumerate(parity)]
+        direct = rag.retrieve(parity, num_to_retrieve=cfg.retrieval_top_k)
+        hot = [corpus.query(int(i)) for i in corpus.rng.choice(sizes["passages"], HOT_QUERIES, replace=False)]
+        traffic = serve_traffic(corpus, sizes, hot)
+
+        fused_topk.SCAN_LAUNCHES.reset()
+        svc = RetrievalService(rag, max_wait_ms=SERVE_MAX_WAIT_MS, response_cache_size=SERVE_CACHE)
+        try:
+            server = make_native_server(svc, port=0, num_workers=2 * sizes["clients"])
+            port = server.server_address[1]
+            thread = threading.Thread(target=server.serve_forever, name="native-http")
+            thread.start()
+            try:
+                records = run_clients(port, parity_requests, sizes["clients"])
+                out["parity_trades"] = parity_trades(parity_requests, records, direct, PARITY_ATOL)
+                out["parity_latency_ms"] = latency_ms(records)
+                log(f"phase 6 parity: {len(parity)} distinct queries served concurrently rank as "
+                    f"rag.retrieve; {out['parity_trades']} near-tie trades (|Δ| ≤ {PARITY_ATOL})")
+
+                before, clocks = svc.stats(), engine_seconds(rag)
+                mutations = {}
+                done = [0]
+                lock = threading.Lock()
+                third = threading.Event()
+                two_thirds = threading.Event()
+
+                def progress():
+                    with lock:
+                        done[0] += 1
+                        if done[0] >= len(traffic) // 3:
+                            third.set()
+                        if done[0] >= 2 * len(traffic) // 3:
+                            two_thirds.set()
+
+                new_ids = corpus.add_new(sizes["new_passages"])
+                deleted = [int(i) for i in corpus.rng.choice(sizes["passages"], sizes["deleted"], replace=False)]
+
+                def mutate():
+                    import http.client
+
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+                    try:
+                        third.wait()
+                        t = time.perf_counter()
+                        status, body = _post(conn, "/index", {"docs": [corpus.docs[i] for i in new_ids]})
+                        mutations["index"] = {"status": status, "ms": (time.perf_counter() - t) * 1e3, "body": body}
+                        probes = []
+                        for i in new_ids[:NEW_PASSAGE_PROBES]:
+                            own = corpus.entities[i][1]
+                            status, body = _post(conn, "/retrieve", {"query": f"Tell me about {own}.", "top_k": 5})
+                            probes.append((status, corpus.docs[i] in body.get("docs", [])))
+                        mutations["index_probes"] = probes
+                        two_thirds.wait()
+                        t = time.perf_counter()
+                        status, body = _post(conn, "/delete", {"docs": [corpus.docs[i] for i in deleted]})
+                        mutations["delete"] = {"status": status, "ms": (time.perf_counter() - t) * 1e3, "body": body}
+                        mutations["deleted_at"] = time.perf_counter()
+                        probes = []
+                        for i in deleted[:NEW_PASSAGE_PROBES]:
+                            status, body = _post(conn, "/retrieve", {"query": f"Tell me about {corpus.titles[i]}.",
+                                                                     "top_k": 200})
+                            probes.append((status, corpus.docs[i] in body.get("docs", [])))
+                        mutations["delete_probes"] = probes
+                    except Exception as exc:  # noqa: BLE001 - reported as a failed check below
+                        mutations["error"] = repr(exc)
+                    finally:
+                        conn.close()
+
+                mutator = threading.Thread(target=mutate, name="mutator")
+                mutator.start()
+                t0 = time.perf_counter()
+                records = run_clients(port, traffic, sizes["clients"], on_done=progress)
+                wall = time.perf_counter() - t0
+                third.set()
+                two_thirds.set()
+                mutator.join(timeout=600)
+                check(not mutator.is_alive(), "phase 6: the /index or /delete request did not return")
+                check("error" not in mutations, f"phase 6: mutation failed: {mutations.get('error')}")
+                after = svc.stats()
+                clocks = {k: v - clocks[k] for k, v in engine_seconds(rag).items()}
+                gone = {corpus.docs[i] for i in deleted}
+                # the same kind of window on both front ends: retrieve only, after the mutations
+                native_short = short_window(port, corpus, sizes, hot, gone, "native")
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=60)
+
+            check(mutations["index"]["status"] == 200 and mutations["delete"]["status"] == 200,
+                  f"phase 6: /index {mutations['index']} /delete {mutations['delete']}")
+            check(all(s == 200 and found for s, found in mutations["index_probes"]),
+                  f"phase 6: a new passage is not in the top 5 for its own entity: {mutations['index_probes']}")
+            check(all(s == 200 and not found for s, found in mutations["delete_probes"]),
+                  "phase 6: a deleted passage is still served")
+            late = [r for r in records if r[0] > mutations["deleted_at"] and r[2] == 200]
+            check(not any(gone & set(r[3]["docs"]) for r in late),
+                  "phase 6: a deleted passage appears in a response after /delete returned")
+            statuses = [r[2] for r in records]
+            check(set(statuses) <= {200, 503}, f"phase 6: statuses {sorted(set(statuses))}")
+            ret = [r for (path, _), r in zip(traffic, records) if path == "/retrieve" and r[2] == 200]
+            qa = [r for (path, _), r in zip(traffic, records) if path == "/qa" and r[2] == 200]
+            check(all(r[3]["answer"] for r in qa), "phase 6: a /qa response has no answer")
+
+            std = make_server(svc, port=0)
+            std_thread = threading.Thread(target=std.serve_forever, name="stdlib-http")
+            std_thread.start()
+            try:
+                std_short = short_window(std.server_address[1], corpus, sizes, hot, gone, "stdlib")
+            finally:
+                std.shutdown()
+                std.server_close()
+                std_thread.join(timeout=60)
+            final = svc.stats()
+        finally:
+            svc.close()
+        sync()
+        launches = fused_topk.SCAN_LAUNCHES.count
+        check(launches > 0, "phase 6: serving did not launch the fused kernel")
+        for lane in ("retrieve", "qa"):
+            check(final[lane]["failed_batches"] == 0 and final[lane]["pending"] == 0,
+                  f"phase 6: {lane} lane {final[lane]}")
+
+    lane = {k: after["retrieve"][k] - before["retrieve"][k] for k in ("requests", "batches", "shed")}
+    out.update({
+        "native": {
+            "wall_s": wall, "requests": len(traffic), "retrieve_ok": len(ret), "qa_ok": len(qa),
+            "shed": statuses.count(503),
+            "retrieve_per_s": len(ret) / wall, "requests_per_s": len(records) / wall,
+            "retrieve_latency_ms": latency_ms(ret), "qa_latency_ms": latency_ms(qa),
+            "mean_batch_size": lane["requests"] / max(1, lane["batches"]),
+            "dedup_saved": after["dedup_saved"] - before["dedup_saved"],
+            "cache_hits": after["response_cache"]["hits"] - before["response_cache"]["hits"],
+            "engine_s": clocks,
+        },
+        "native_retrieve_only": native_short,
+        "stdlib": std_short,
+        "index_ms": mutations["index"]["ms"], "delete_ms": mutations["delete"]["ms"],
+        "kernel_launches": launches, "peak_memory_bytes": peak_memory(),
+        "service": {k: final[k] for k in ("dedup_saved", "response_cache")},
+        "lanes": {k: {f: final[k][f] for f in ("requests", "batches", "failed_batches", "shed", "pending",
+                                               "mean_batch_size")} for k in ("retrieve", "qa")},
+    })
+    log("phase 6: " + json.dumps(out))
+    return out
+
+
+def phase6_lifecycle(device):
+    """index -> delete -> retrieve -> re-index -> retrieve on the sample
+    corpus, held to the JAX package's fixture in float32 and bfloat16."""
+    with open(LIFECYCLE_FIXTURE) as fh:
+        fixture = json.load(fh)
+    data = load_dataset("sample", os.path.join(ROOT, "data"))
+    worst = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for dtype, want in fixture["records"].items():
+            cfg = BaseConfig(save_dir=os.path.join(tmp, dtype), compute_dtype=dtype, **fixture["config"])
+            got = lifecycle_record(HippoRAG(cfg, device=device), data)
+            worst[dtype] = compare_lifecycle(got, want, LIFECYCLE_SCORE_ATOL[dtype])
+    log(f"phase 6 lifecycle: index -> delete -> retrieve -> re-index -> retrieve equals the JAX package "
+        f"(float32 and bfloat16); max score diff {json.dumps(worst)}")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -842,24 +1356,55 @@ def main() -> int:
     detail["phase3"] = {dt: phase3(device, dt) for dt in ("float32", "bfloat16")}
     log("phase 3: " + json.dumps(detail["phase3"]))
     phase4(device)
-    phase5(device)
+    p5 = phase5(device)
+    p6 = phase6(device)
+    lifecycle = phase6_lifecycle(device)
+    native, std = p6["native"], p6["stdlib"]
+    log(f"phase 6 summary on {smi}: " + json.dumps({
+        "passages": p6["passages"], "index_wall_s": p6["index"]["index_wall_s"],
+        "native_retrieve_per_s": native["retrieve_per_s"], "native_latency_ms": native["retrieve_latency_ms"],
+        "native_retrieve_only_per_s": p6["native_retrieve_only"]["retrieve_per_s"],
+        "native_retrieve_only_latency_ms": p6["native_retrieve_only"]["retrieve_latency_ms"],
+        "engine_s": native["engine_s"],
+        "stdlib_retrieve_per_s": std["retrieve_per_s"], "stdlib_latency_ms": std["retrieve_latency_ms"],
+        "mean_batch_size": native["mean_batch_size"], "dedup_saved": native["dedup_saved"],
+        "cache_hits": native["cache_hits"],
+        "shed": native["shed"] + std["shed"] + p6["native_retrieve_only"]["shed"],
+        "index_ms": p6["index_ms"], "delete_ms": p6["delete_ms"], "parity_trades": p6["parity_trades"],
+        "kernel_launches": p6["kernel_launches"], "peak_memory_bytes": p6["peak_memory_bytes"],
+        "lifecycle_max_score_diff": lifecycle,
+    }))
 
     f32, bf16 = big["f32"], big["bf16"]
     kernels = [{
         "name": "fused_topk_scan",
         "route": "cuda",
         "source": "hipporag_tpu_torch/csrc/fused_topk_scan.cu",
-        "replaces": "hipporag_tpu/ops/fused_topk.py:58",
+        "replaces": "hipporag_tpu/ops/fused_topk.py:125",
         "launches": launches,
+        "launches_by_path": {
+            "phase2_bucket": launches,
+            **{f"phase3_{dt}": d["kernel_launches"] for dt, d in detail["phase3"].items()},
+            "phase5_retrieve": p5["kernel_launches"],
+            "phase6_serving": p6["kernel_launches"],
+        },
         "max_abs_err": f32["err"],
         "delta_bound": f32["delta"],
         "ms": f32["ms"]["scan_kernel"],
         "plain_ms": f32["ms"]["scan_plain"],
+        "bound_ms": f32["bound"]["bound_ms"],
+        "bound_by": f32["bound"]["bound_by"],
+        "split_products_ms": f32["bound"]["split_products_ms"],
+        "library_ms": f32["ms"]["library_matmul"],
         "max_abs_err_bf16": bf16["err"],
         "delta_bound_bf16": bf16["delta"],
         "ms_bf16": bf16["ms"]["scan_kernel"],
         "plain_ms_bf16": bf16["ms"]["scan_plain"],
+        "bound_ms_bf16": bf16["bound"]["bound_ms"],
+        "bound_by_bf16": bf16["bound"]["bound_by"],
     }]
+    stray = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hipporag_tpu"))
+    check(not stray, f"the port imported {stray[:5]}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -4,14 +4,15 @@ A port of ``hipporag_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA GPU,
 module for module: ``hipporag_tpu_torch/ops/pagerank.py`` is the
 counterpart of ``hipporag_tpu/ops/pagerank.py``, and so on. The device
 code is torch plus hand-written CUDA kernels (``csrc/``); it never imports
-JAX. Host components without JAX (config, LLMs, embedders, stores, OpenIE,
-prompts, the rerank filter, dataset loading) are reused from
-``hipporag_tpu`` and re-exported here, so callers name only this package.
+JAX, nor anything of ``hipporag_tpu``. The host components (config, LLMs,
+embedders, stores, OpenIE, prompts, the rerank filter, dataset loading, the
+serving layer) are the package's own copies of the JAX package's JAX-free
+modules, in the same layout, with the same on-disk formats.
 """
 
-from hipporag_tpu.config import BaseConfig
-from hipporag_tpu.datasets import load_dataset
-from hipporag_tpu.utils.misc import Chunk, QuerySolution, RetrievalResult, compute_mdhash_id
+from .config import BaseConfig
+from .datasets import load_dataset
+from .utils.misc import Chunk, QuerySolution, RetrievalResult, compute_mdhash_id
 
 __all__ = [
     "BaseConfig",

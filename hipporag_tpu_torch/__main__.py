@@ -8,7 +8,11 @@ The counterpart of the repository's ``main.py`` on a torch device:
         --llm_name mock --embedding_name mock --device cpu
 
 ``--vector_store_type memory`` runs without pyarrow (the default parquet
-store needs it). Serving (``--serve``) is not ported yet and is refused.
+store needs it). ``--serve`` serves the index over HTTP instead of running
+the evaluation:
+
+    python -m hipporag_tpu_torch --dataset sample --llm_name mock \
+        --embedding_name jax/random-768x12 --vector_store_type memory --serve
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import logging
 import os
 import sys
 
-from hipporag_tpu.utils.misc import string_to_bool
+from .utils.misc import string_to_bool
 
 from . import BaseConfig, HippoRAG, StandardRAG, load_dataset
 
@@ -48,11 +52,46 @@ def parse_args(argv=None):
     p.add_argument("--rerank_dspy_file_path", default=None)
     p.add_argument("--corpus_len", type=int, default=None, help="Truncate corpus for smoke runs")
     p.add_argument("--output_json", default=None, help="Write per-query solutions + metrics here")
-    p.add_argument("--serve", action="store_true", help="Not ported yet: refused")
-    args = p.parse_args(argv)
-    if args.serve:
-        p.error("--serve: serving is not ported to hipporag_tpu_torch yet (use main.py --serve)")
-    return args
+    p.add_argument(
+        "--serve", action="store_true",
+        help="After indexing, serve HTTP retrieval/QA (POST /retrieve, /qa, /index, /delete; "
+             "GET /health, /stats, /metrics) instead of running the batch evaluation. "
+             "Concurrent requests are micro-batched onto the device.",
+    )
+    p.add_argument("--host", default="127.0.0.1", help="--serve bind host")
+    p.add_argument("--port", type=int, default=8734, help="--serve bind port")
+    p.add_argument(
+        "--serve_max_wait_ms", type=float, default=8.0,
+        help="Micro-batching coalescing window (p50 latency tax under load)",
+    )
+    p.add_argument(
+        "--serve_frontend", choices=["stdlib", "native", "auto"], default="auto",
+        help="HTTP transport: 'native' is the C++ epoll front-end (socket I/O and HTTP "
+             "parsing outside the GIL), 'stdlib' the threaded http.server. 'auto' tries "
+             "native and falls back to stdlib if the C++ toolchain is unavailable. The "
+             "wire contract is identical.",
+    )
+    return p.parse_args(argv)
+
+
+def serve(rag, args, queries) -> None:
+    """Serve ``rag`` over HTTP until SIGTERM or Ctrl-C."""
+    from .serving import RetrievalService
+    from .serving.http_server import serve_forever
+
+    service = RetrievalService(rag, max_wait_ms=args.serve_max_wait_ms)
+    service.warmup(queries[0] if queries else "warmup query")
+    server = None
+    if args.serve_frontend in ("native", "auto"):
+        from .serving.native_http import make_native_server
+
+        try:
+            server = make_native_server(service, host=args.host, port=args.port)
+        except (RuntimeError, OSError):
+            if args.serve_frontend == "native":
+                raise
+            logging.getLogger(__name__).warning("native front-end unavailable; falling back to stdlib")
+    serve_forever(service, host=args.host, port=args.port, server=server)
 
 
 def main(argv=None) -> int:
@@ -87,6 +126,10 @@ def main(argv=None) -> int:
     rag_class = HippoRAG if args.rag_type == "hipporag" else StandardRAG
     rag = rag_class(global_config=config, device=args.device)
     rag.index(docs)
+
+    if args.serve:
+        serve(rag, args, queries)
+        return 0
 
     out = rag.rag_qa(queries=queries, gold_docs=gold_docs, gold_answers=gold_answers)
 

@@ -1,9 +1,11 @@
-"""The port's embedding factory.
+"""Embedding model factory.
 
-``jax/<spec>`` names (the JAX package's on-device encoder) go to the
-port's encoder on the given torch device, so one ``BaseConfig`` drives both
-packages. Every other name goes to ``hipporag_tpu.embedding``'s factory,
-whose backends for those names import no JAX.
+Name routing mirrors the reference factory (embedding_model/__init__.py:15-30):
+model-family substrings (NV-Embed-v2, GritLM, contriever) and explicit
+prefixes select backends; anything else goes to the OpenAI-compatible
+client. ``jax/<spec>`` names (the JAX package's on-device encoder) go to
+the port's encoder on the given torch device, so one configuration drives
+both packages.
 """
 
 from __future__ import annotations
@@ -12,16 +14,49 @@ from typing import Union
 
 import torch
 
-from hipporag_tpu.config import BaseConfig
-from hipporag_tpu.embedding import get_embedding_model as _host_embedding_model
-from hipporag_tpu.embedding.base import BaseEmbeddingModel
+from ..config import BaseConfig
+from .base import BaseEmbeddingModel
+from .mock import MockEmbeddingModel
 
-__all__ = ["get_embedding_model"]
+__all__ = ["BaseEmbeddingModel", "MockEmbeddingModel", "get_embedding_model"]
 
 
 def get_embedding_model(config: BaseConfig, device: Union[str, torch.device] = "cuda") -> BaseEmbeddingModel:
-    if config.embedding_model_name.startswith("jax/"):
+    name = config.embedding_model_name
+    if name == "mock" or name.startswith("mock/"):
+        return MockEmbeddingModel(config)
+    if name == "hashing" or name.startswith("hashing/"):
+        from .hashing import HashingNgramEmbeddingModel
+
+        return HashingNgramEmbeddingModel(config)
+    if name.startswith("jax/"):
         from .encoder import TorchEncoderEmbeddingModel
 
         return TorchEncoderEmbeddingModel(config, device=device)
-    return _host_embedding_model(config)
+    if name.startswith("st/") or name.startswith("Transformers/"):
+        from .transformers_embed import TransformersEmbeddingModel
+
+        return TransformersEmbeddingModel(config)
+    if name.startswith("VLLM/"):
+        from .vllm_embed import VLLMEmbeddingModel
+
+        return VLLMEmbeddingModel(config)
+    if "NV-Embed-v2" in name:
+        from .nvembed import NVEmbedV2EmbeddingModel
+
+        return NVEmbedV2EmbeddingModel(config)
+    if "GritLM" in name:
+        from .gritlm_embed import GritLMEmbeddingModel
+
+        return GritLMEmbeddingModel(config)
+    if "contriever" in name.lower():
+        from .contriever import ContrieverEmbeddingModel
+
+        return ContrieverEmbeddingModel(config)
+    if "cohere" in name.lower():
+        from .cohere_embed import CohereEmbeddingModel
+
+        return CohereEmbeddingModel(config)
+    from .openai_embed import OpenAIEmbeddingModel
+
+    return OpenAIEmbeddingModel(config)

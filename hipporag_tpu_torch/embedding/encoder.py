@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hipporag_tpu.embedding.base import BaseEmbeddingModel
+from .base import BaseEmbeddingModel
 
 _BF16 = torch.bfloat16
 _F32 = torch.float32

@@ -39,8 +39,8 @@ import pickle
 import re
 from typing import Dict, Iterable, List, Set, Tuple
 
-from hipporag_tpu.utils.logging import get_logger
-from hipporag_tpu.utils.misc import compute_mdhash_id
+from ..utils.logging import get_logger
+from ..utils.misc import compute_mdhash_id
 
 logger = get_logger(__name__)
 

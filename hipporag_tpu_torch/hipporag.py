@@ -13,11 +13,13 @@ package, with the device work in torch on an explicit ``device``:
   min-max-normalized query x passage scores and a top-k on the device.
 - **IRCoT** (``retrieve_ircot``, ``answer_with_ircot``): batched rounds of
   ``retrieve`` between reasoning steps.
-- **QA** through the JAX package's host-side ``qa_utils``.
+- **Delete** (``delete``): host-only bookkeeping of stores and graph
+  refcounts; the next retrieve rebuilds the device state.
+- **QA** through the host-side ``utils/qa_utils``.
 
 The host components (LLMs, stores, OpenIE, prompts, the rerank filter, the
-embedders other than ``jax/``) are the JAX package's own modules, none of
-which imports JAX; ``jax/`` embedders run on the port's encoder
+embedders other than ``jax/``) are the port's copies of the JAX package's
+JAX-free modules; ``jax/`` embedders run on the port's encoder
 (``embedding/encoder.py``) on ``device``.
 """
 
@@ -31,16 +33,16 @@ from typing import Dict, List, Optional, Set, Tuple, Union
 import numpy as np
 import torch
 
-from hipporag_tpu.config import BaseConfig
-from hipporag_tpu.evaluation import RetrievalRecall
-from hipporag_tpu.llm import get_llm
-from hipporag_tpu.openie import LLMOpenIE
-from hipporag_tpu.preprocessing import get_preprocessor
-from hipporag_tpu.prompts import PromptTemplateManager, get_query_instruction
-from hipporag_tpu.rerank import RecognitionMemoryFilter
-from hipporag_tpu.storage import get_embedding_store
-from hipporag_tpu.utils.logging import get_logger
-from hipporag_tpu.utils.misc import (
+from .config import BaseConfig
+from .evaluation import RetrievalRecall
+from .llm import get_llm
+from .openie import LLMOpenIE
+from .preprocessing import get_preprocessor
+from .prompts import PromptTemplateManager, get_query_instruction
+from .rerank import RecognitionMemoryFilter
+from .storage import get_embedding_store
+from .utils.logging import get_logger
+from .utils.misc import (
     Chunk,
     QuerySolution,
     compute_mdhash_id,
@@ -49,8 +51,8 @@ from hipporag_tpu.utils.misc import (
     flatten_facts,
     text_processing,
 )
-from hipporag_tpu.utils.qa_utils import finish_rag_qa, reason_step
-from hipporag_tpu.utils.timing import StageTimers
+from .utils.qa_utils import finish_rag_qa, reason_step
+from .utils.timing import StageTimers
 
 from .embedding import get_embedding_model
 from .graph import GraphBuilder, compile_device_graph, pick_capacity
@@ -161,11 +163,11 @@ class HippoRAG:
 
         ie_name = self.global_config.information_extraction_model_name
         if ie_name == "openie_vllm_offline":
-            from hipporag_tpu.openie.openie_offline import VLLMOfflineOpenIE
+            from .openie.openie_offline import VLLMOfflineOpenIE
 
             self.openie = VLLMOfflineOpenIE(self.global_config)
         elif ie_name == "openie_transformers_offline":
-            from hipporag_tpu.openie.openie_offline import TransformersOfflineOpenIE
+            from .openie.openie_offline import TransformersOfflineOpenIE
 
             self.openie = TransformersOfflineOpenIE(self.global_config)
         else:
@@ -432,6 +434,78 @@ class HippoRAG:
             "num_synonymy_triples": cats["synonymy"],
             "num_total_triples": self.graph.num_edges,
         }
+
+    # ==================================================================
+    # Deletion
+    # ==================================================================
+    def delete(self, docs_to_delete: List[str]):
+        """Remove documents, as the JAX package does.
+
+        Only entities and facts that no surviving chunk references are
+        removed; fact edges shared with surviving chunks keep their full
+        accumulated weight (the deleted chunk's +1 included), so the
+        post-delete graph depends on the order of operations and is not the
+        graph a scratch build of the survivors would give. Deletion is
+        host-only bookkeeping (stores and graph refcounts): it does not
+        build the device graph, and the next retrieve rebuilds the device
+        state with the sticky capacities.
+        """
+        all_openie_info = self._ensure_host_refcounts()
+
+        current = set(self.chunk_embedding_store.get_all_texts())
+        docs_to_delete = [d for d in docs_to_delete if d in current]
+        chunk_ids_to_delete = {
+            self.chunk_embedding_store.text_to_hash_id[d] for d in docs_to_delete
+        }
+        if not chunk_ids_to_delete:
+            return
+        triples_to_delete, remaining = [], []
+        triples_by_chunk: Dict[str, List] = {}
+        for doc in all_openie_info:
+            proc = [
+                tuple(text_processing(t))
+                for t in filter_invalid_triples(doc["extracted_triples"])
+            ]
+            triples_by_chunk[doc["idx"]] = proc
+            if doc["idx"] in chunk_ids_to_delete:
+                triples_to_delete.append(proc)
+            else:
+                remaining.append(doc)
+
+        affected = set(flatten_facts(triples_to_delete))
+        # a triple is unreferenced when no remaining chunk contains it
+        still_referenced: Set[Tuple] = set()
+        for doc in remaining:
+            still_referenced.update(triples_by_chunk.get(doc["idx"], []))
+        unreferenced_triples = [t for t in affected if t not in still_referenced]
+
+        orphaned_entities, _ = self.graph.remove_chunk_refs(
+            chunk_ids_to_delete,
+            {cid: triples_by_chunk.get(cid, []) for cid in chunk_ids_to_delete},
+        )
+
+        fact_ids = []
+        for t in unreferenced_triples:
+            fid = self.fact_embedding_store.text_to_hash_id.get(_fact_text(t))
+            if fid:
+                fact_ids.append(fid)
+
+        logger.info(
+            "Deleting %d chunks, %d facts, %d entities",
+            len(chunk_ids_to_delete), len(fact_ids), len(orphaned_entities),
+        )
+
+        self.save_openie_results(remaining)
+        self.entity_embedding_store.delete(list(orphaned_entities))
+        self.fact_embedding_store.delete(fact_ids)
+        self.chunk_embedding_store.delete(list(chunk_ids_to_delete))
+        for cid in chunk_ids_to_delete:
+            self.chunk_metadata.pop(cid, None)
+        self._save_chunk_metadata()
+
+        self.graph.delete_vertices(orphaned_entities | chunk_ids_to_delete)
+        self.graph.save(self._graph_path)
+        self.ready_to_retrieve = False
 
     # ==================================================================
     # Retrieval preparation
@@ -984,7 +1058,7 @@ class HippoRAG:
                 f"No IRCoT template 'ircot_{cfg.dataset}' for dataset "
                 f"'{cfg.dataset}'; multi-step IRCoT (max_qa_steps > 1) "
                 "requires a dataset-specific template under "
-                "hipporag_tpu/prompts/templates/."
+                "hipporag_tpu_torch/prompts/templates/."
             )
         if num_to_retrieve is None:
             num_to_retrieve = cfg.retrieval_top_k

@@ -21,6 +21,14 @@ The [B, N] query-by-key score matrix is never formed. Two passes:
   the max is the top candidate, the min is taken over the ``MIN_TILES``
   tiles with the smallest pass-A mins.
 
+  The re-dot's float32 products round a dot product as the kernel cuBLAS
+  picks for the batch does, so scores that agree to the last bits can come
+  out in another order when a query runs in a batch of another size. The
+  best ``k + TIE_SPARE`` candidates (and the ``TIE_SPARE + 1`` lowest) are
+  therefore scored once more in float64 and rounded to float32: the
+  correctly rounded score, the same in any batch. The top-k and the row
+  extrema are taken over those scores, ties to the lower key index.
+
 Normalization follows ``ops.scoring.min_max_normalize``: constant rows map
 to 1.0, missing candidates (fewer than k valid keys) to norm 0 and index 0.
 Ties within a tile go to the lower index; across tiles with exactly tied
@@ -44,6 +52,7 @@ _DEPTH_MULTIPLE = 32  # the kernel stages D in 32-deep chunks
 QUERY_WIDTHS = (8, 16, 32, 64, 128)
 EXTRA_TILES = 2  # tiles refined beyond the top-k by pass-A max
 MIN_TILES = 2  # tiles with the smallest pass-A min re-dotted for the row min
+TIE_SPARE = 8  # candidates beyond k (and beside the row min) rescored in float64
 # Bound on the [B, cols] score block the plain scan forms at once.
 _PLAIN_SCAN_BYTES = 1 << 28
 
@@ -220,8 +229,9 @@ def _fused_topk(scan, queries, keys, valid_n, k: int, extra_tiles: int = EXTRA_T
     cidx = cidx.view(b, kt * TILE_N)
     cand = torch.where(cidx < valid_n, cand, -torch.inf)
 
-    vals, pos = topk_lower_index(cand, k)  # [B, k]
-    idx = torch.gather(cidx, 1, pos)
+    exact, ids = _rescore(cand, cidx, keys, queries, k + TIE_SPARE)
+    vals, pos = topk_lower_index(exact, k)  # [B, k]; ids ascend, so ties go to the lower key
+    idx = torch.gather(ids, 1, pos)
 
     # Row extrema in the refinement's arithmetic: the max is the top
     # candidate, the min comes from re-dotting the tiles with the smallest
@@ -229,10 +239,12 @@ def _fused_topk(scan, queries, keys, valid_n, k: int, extra_tiles: int = EXTRA_T
     # its delta, which would move a score equal to the row min off 0 after
     # normalization, and can swap the two lowest tiles.
     _low_vals, low_sel = topk_lower_index(-tmin, min(min_tiles, n_tiles))
-    mn = torch.full((b, 1), torch.inf, device=queries.device)
-    for r in range(low_sel.shape[1]):
-        low, low_idx = redot(low_sel[:, r])
-        mn = torch.minimum(mn, torch.where(low_idx < valid_n, low, torch.inf).amin(1, keepdim=True))
+    lows = [redot(low_sel[:, r]) for r in range(low_sel.shape[1])]
+    low = torch.cat([v for v, _ in lows], 1)
+    low_idx = torch.cat([i for _, i in lows], 1)
+    low_exact, _ids = _rescore(-torch.where(low_idx < valid_n, low, torch.inf), low_idx, keys, queries,
+                               TIE_SPARE + 1)
+    mn = torch.where(low_exact > -torch.inf, low_exact, torch.inf).amin(1, keepdim=True)
     mx = vals[:, :1]
     rng = mx - mn
     finite = vals > -torch.inf
@@ -240,6 +252,18 @@ def _fused_topk(scan, queries, keys, valid_n, k: int, extra_tiles: int = EXTRA_T
     norm = torch.where(finite, norm, 0.0)
     idx = torch.where(finite, idx, 0).to(torch.int32)
     return norm, vals, idx
+
+
+def _rescore(cand, cidx, keys, queries, count):
+    """The ``count`` largest candidates of each row, scored in float64 and
+    rounded to float32, ordered by ascending key id: (scores [B, count],
+    key ids [B, count]); candidates that were -inf stay -inf."""
+    count = min(count, cand.shape[1])
+    top, pos = topk_lower_index(cand, count)
+    ids, order = torch.sort(torch.gather(cidx, 1, pos), dim=1)
+    real = torch.gather(top, 1, order) > -torch.inf
+    exact = torch.bmm(keys[ids].double(), queries.double()[:, :, None])[:, :, 0].float()
+    return torch.where(real, exact, -torch.inf), ids
 
 
 def fused_score_topk(queries: torch.Tensor, keys: torch.Tensor, valid_n, k: int):

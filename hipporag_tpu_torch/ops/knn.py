@@ -48,7 +48,7 @@ def retrieve_knn_pairs(
     sim_threshold: float,
     query_batch_size: int = 1000,
     key_batch_size: int = 10000,
-    device="cpu",
+    device="cuda",
 ):
     """Above-threshold kNN pairs: (rows int64, cols int64, scores float32) numpy.
 

@@ -16,16 +16,16 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from hipporag_tpu.config import BaseConfig
-from hipporag_tpu.evaluation import RetrievalRecall
-from hipporag_tpu.llm import get_llm
-from hipporag_tpu.preprocessing import get_preprocessor
-from hipporag_tpu.prompts import PromptTemplateManager, get_query_instruction
-from hipporag_tpu.storage import get_embedding_store
-from hipporag_tpu.utils.logging import get_logger
-from hipporag_tpu.utils.misc import Chunk, QuerySolution
-from hipporag_tpu.utils.qa_utils import finish_rag_qa
-from hipporag_tpu.utils.timing import StageTimers
+from .config import BaseConfig
+from .evaluation import RetrievalRecall
+from .llm import get_llm
+from .preprocessing import get_preprocessor
+from .prompts import PromptTemplateManager, get_query_instruction
+from .storage import get_embedding_store
+from .utils.logging import get_logger
+from .utils.misc import Chunk, QuerySolution
+from .utils.qa_utils import finish_rag_qa
+from .utils.timing import StageTimers
 
 from .embedding import get_embedding_model
 from .ops.scoring import dense_topk

@@ -36,8 +36,8 @@ torch.set_num_threads(1)
 DATA = os.path.join(ROOT, "data")
 
 
-def _config(save_dir, **kw):
-    return hipporag_tpu.BaseConfig(
+def _config(save_dir, pkg=hipporag_tpu_torch, **kw):
+    return pkg.BaseConfig(
         llm_name="mock", embedding_model_name="jax/random-64x2", vector_store_type="memory",
         save_dir=str(save_dir), **kw,
     )
@@ -54,8 +54,8 @@ def records(tmp_path_factory):
     for name, pkg, kw in (("ref", hipporag_tpu, {}), ("port", hipporag_tpu_torch, {"device": "cpu"})):
         root = tmp_path_factory.mktemp(name)
         out[name] = chip_smoke.entry_point_record(
-            pkg.HippoRAG(_config(root / "hipporag"), **kw),
-            pkg.StandardRAG(_config(root / "standard"), **kw),
+            pkg.HippoRAG(_config(root / "hipporag", pkg), **kw),
+            pkg.StandardRAG(_config(root / "standard", pkg), **kw),
             data,
         )[0]
     return out
@@ -84,7 +84,7 @@ def test_retrieve_dpr_bucket_padding_and_top_k(tmp_path):
     many = [f"{q} variant {i}" for i in range(5) for q in queries]
     got, want = [], []
     for out, pkg, kw in ((want, hipporag_tpu, {}), (got, hipporag_tpu_torch, {"device": "cpu"})):
-        rag = pkg.HippoRAG(_config(tmp_path / pkg.__name__, ppr_batch_size=8), **kw)
+        rag = pkg.HippoRAG(_config(tmp_path / pkg.__name__, pkg, ppr_batch_size=8), **kw)
         rag.index(docs)
         out.extend(rag.retrieve_dpr(many, num_to_retrieve=3))
     assert len(got) == len(want) == len(many)
@@ -97,7 +97,7 @@ def test_standard_rag_empty_index(tmp_path):
     queries, gold = ["where?", "who?"], [["a"], ["b"]]
     outs = []
     for pkg, kw in ((hipporag_tpu, {}), (hipporag_tpu_torch, {"device": "cpu"})):
-        rag = pkg.StandardRAG(_config(tmp_path / pkg.__name__), **kw)
+        rag = pkg.StandardRAG(_config(tmp_path / pkg.__name__, pkg), **kw)
         rag.index([])
         sols = rag.retrieve(queries)
         assert [s.docs for s in sols] == [[], []]
@@ -109,7 +109,7 @@ def test_standard_rag_delete_then_retrieve(tmp_path):
     docs, queries, _, _ = _data()
     results = []
     for pkg, kw in ((hipporag_tpu, {}), (hipporag_tpu_torch, {"device": "cpu"})):
-        rag = pkg.StandardRAG(_config(tmp_path / pkg.__name__), **kw)
+        rag = pkg.StandardRAG(_config(tmp_path / pkg.__name__, pkg), **kw)
         rag.index(docs)
         rag.delete(docs[:2] + ["not indexed"])
         results.append([s.docs for s in rag.retrieve(queries)])
@@ -132,8 +132,8 @@ def test_ircot_replay_through_port(replay_mod, tmp_path, monkeypatch):
     error), the pinned EM/F1 and the branch counts [1, 2, 2]."""
     monkeypatch.chdir(ROOT)
     fixture = os.path.join(ROOT, "tests", "fixtures", "replay_ircot_cache.sqlite")
-    cfg = hipporag_tpu.BaseConfig(save_dir=str(tmp_path / "ir"), llm_replay_cache_path=fixture,
-                                  **replay_mod.IRCOT_CONFIG_KWARGS)
+    cfg = hipporag_tpu_torch.BaseConfig(save_dir=str(tmp_path / "ir"), llm_replay_cache_path=fixture,
+                                        **replay_mod.IRCOT_CONFIG_KWARGS)
     rag = hipporag_tpu_torch.HippoRAG(global_config=cfg, device="cpu")
     docs, queries, gold_docs, gold_answers = _data()
     rag.index(docs)
@@ -144,7 +144,7 @@ def test_ircot_replay_through_port(replay_mod, tmp_path, monkeypatch):
     assert sorted(len(s.thoughts or []) for s in sols) == [1, 2, 2]
     assert all("So the answer is:" in s.thoughts[-1] for s in sols)
     assert retrieval is not None
-    from hipporag_tpu.llm.openai_llm import CacheOpenAILLM
+    from hipporag_tpu_torch.llm.openai_llm import CacheOpenAILLM
 
     assert isinstance(rag.llm, CacheOpenAILLM)
 
@@ -155,8 +155,8 @@ def test_rag_qa_replay_through_port(replay_mod, tmp_path, monkeypatch):
     ``tests/fixtures/replay_sample_cache.sqlite``, the pinned EM/F1."""
     monkeypatch.chdir(ROOT)
     fixture = os.path.join(ROOT, "tests", "fixtures", "replay_sample_cache.sqlite")
-    cfg = hipporag_tpu.BaseConfig(save_dir=str(tmp_path / "qa"), llm_replay_cache_path=fixture,
-                                  **replay_mod.CONFIG_KWARGS)
+    cfg = hipporag_tpu_torch.BaseConfig(save_dir=str(tmp_path / "qa"), llm_replay_cache_path=fixture,
+                                        **replay_mod.CONFIG_KWARGS)
     rag = hipporag_tpu_torch.HippoRAG(global_config=cfg, device="cpu")
     docs, queries, gold_docs, gold_answers = _data()
     rag.index(docs)
@@ -170,7 +170,7 @@ def test_answer_with_ircot_matches_jax(tmp_path):
     docs, queries, gold_docs, gold_answers = _data()
     outs = []
     for pkg, kw in ((hipporag_tpu, {}), (hipporag_tpu_torch, {"device": "cpu"})):
-        rag = pkg.HippoRAG(_config(tmp_path / pkg.__name__), **kw)
+        rag = pkg.HippoRAG(_config(tmp_path / pkg.__name__, pkg), **kw)
         rag.index(docs)
         outs.append(rag.answer_with_ircot(queries, gold_docs=gold_docs, gold_answers=gold_answers,
                                           max_qa_steps=3))
@@ -214,7 +214,12 @@ def test_cli_matches_main(tmp_path, monkeypatch, rag_type):
 
 
 def test_cli_refuses_serve():
+    """``--serve`` is ported (``tests/test_torch_serving.py`` serves through
+    it); what the CLI still refuses is a front end it does not have."""
     from hipporag_tpu_torch.__main__ import parse_args
 
+    args = parse_args(["--serve", "--serve_frontend", "native", "--port", "0"])
+    assert args.serve and args.serve_frontend == "native" and args.port == 0
+    assert args.serve_max_wait_ms == 8.0 and args.host == "127.0.0.1"
     with pytest.raises(SystemExit):
-        parse_args(["--serve"])
+        parse_args(["--serve", "--serve_frontend", "grpc"])

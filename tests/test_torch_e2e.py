@@ -5,9 +5,11 @@ embedder on the CPU and answer the queries of ``data/sample.json``. The
 ranked passages must be identical and EM/F1 equal. The same run of the JAX
 package is recorded in ``tests/fixtures/torch_port_sample_expected.json``,
 which ``chip_smoke.py`` holds the port to on the GPU; a test here
-regenerates it so it cannot go stale. A subprocess with jax, pandas,
-pyarrow, httpx and filelock blocked shows the port runs without them, with
-the mock embedder and with the port's encoder.
+regenerates it so it cannot go stale. A subprocess with jax,
+``hipporag_tpu``, pandas, pyarrow, httpx and filelock blocked shows the
+port runs without them, with the mock embedder and with the port's encoder:
+index, retrieve, delete, and one served ``/retrieve``. Each package gets its
+own ``BaseConfig``.
 """
 
 import json
@@ -28,11 +30,11 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_sample_expected.json")
-BLOCKED = ("jax", "jaxlib", "pandas", "pyarrow", "httpx", "filelock")
+BLOCKED = ("jax", "jaxlib", "hipporag_tpu", "pandas", "pyarrow", "httpx", "filelock")
 
 
-def _config(save_dir):
-    return hipporag_tpu.BaseConfig(
+def _config(save_dir, pkg=hipporag_tpu_torch):
+    return pkg.BaseConfig(
         llm_name="mock", embedding_model_name="mock", vector_store_type="memory",
         save_dir=str(save_dir),
     )
@@ -59,7 +61,7 @@ def _expected(solutions):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    ref = _run(hipporag_tpu.HippoRAG(_config(tmp_path_factory.mktemp("ref"))))
+    ref = _run(hipporag_tpu.HippoRAG(_config(tmp_path_factory.mktemp("ref"), hipporag_tpu)))
     port = _run(hipporag_tpu_torch.HippoRAG(_config(tmp_path_factory.mktemp("port")), device="cpu"))
     return ref, port
 
@@ -113,7 +115,8 @@ def test_bfloat16_fused_route_matches_fixture(tmp_path, monkeypatch):
 
 def test_port_runs_without_jax_pandas_pyarrow_httpx_filelock(tmp_path):
     """The mock embedder, and the port's encoder (``jax/random-64x2``)
-    through ``HippoRAG.retrieve``, ``retrieve_dpr`` and ``StandardRAG``."""
+    through ``HippoRAG.retrieve``, ``retrieve_dpr`` and ``StandardRAG``;
+    then ``delete`` and one ``/retrieve`` served by the stdlib front end."""
     code = f"""
 import sys
 for m in {BLOCKED!r}:
@@ -122,8 +125,7 @@ sys.path.insert(0, {ROOT!r})
 import torch
 torch.set_num_threads(1)
 import hipporag_tpu_torch
-from hipporag_tpu.datasets import load_dataset
-docs, queries, _, _ = load_dataset("sample", {os.path.join(ROOT, "data")!r})
+docs, queries, _, _ = hipporag_tpu_torch.load_dataset("sample", {os.path.join(ROOT, "data")!r})
 for name in ("mock", "jax/random-64x2"):
     cfg = hipporag_tpu_torch.BaseConfig(llm_name="mock", embedding_model_name=name,
                                         vector_store_type="memory", save_dir={str(tmp_path)!r} + "/" + name)
@@ -137,6 +139,21 @@ for name in ("mock", "jax/random-64x2"):
         std = hipporag_tpu_torch.StandardRAG(cfg, device="cpu")
         std.index(docs)
         assert all(s.docs for s in std.retrieve(queries))
+rag.delete(docs[:2])
+import json, threading, urllib.request
+from hipporag_tpu_torch.serving import RetrievalService
+from hipporag_tpu_torch.serving.http_server import make_server
+with RetrievalService(rag, max_wait_ms=0) as svc:
+    server = make_server(svc, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/retrieve" % server.server_address[1],
+        data=json.dumps({{"query": queries[0], "top_k": 3}}).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        body = json.loads(resp.read())
+    server.shutdown()
+    server.server_close()
+assert len(body["docs"]) == 3 and not set(body["docs"]) & set(docs[:2]), body
 assert not any(m in sys.modules and sys.modules[m] is not None for m in {BLOCKED!r})
 print("OK", len(sols))
 """
@@ -146,6 +163,49 @@ print("OK", len(sols))
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK 3")
+
+
+def _jax_package_imports(path):
+    """Every import of ``hipporag_tpu`` or ``hipporag_tpu.*`` in a file, at
+    any depth (lazy imports in functions too), and every ``import_module``
+    or ``__import__`` call naming it."""
+    import ast
+
+    with open(path, encoding="utf-8") as fh:
+        tree = ast.parse(fh.read(), path)
+    found = []
+
+    def names_jax_package(name):
+        return name == "hipporag_tpu" or name.startswith("hipporag_tpu.")
+
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if names_jax_package(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and names_jax_package(node.module or ""):
+            found.append(node.module)
+        elif isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant):
+            fn = node.func
+            fn_name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            arg = node.args[0].value
+            if fn_name in ("import_module", "__import__") and isinstance(arg, str) and names_jax_package(arg):
+                found.append(arg)
+    return found
+
+
+def test_port_imports_nothing_of_the_jax_package(tmp_path):
+    """No file of the port, nor ``chip_smoke.py`` or
+    ``scripts/profile_torch_bucket.py``, imports ``hipporag_tpu``."""
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "profile_torch_bucket.py")]
+    for dirpath, _dirs, names in os.walk(os.path.join(ROOT, "hipporag_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(files) > 60
+    offenders = {os.path.relpath(f, ROOT): found for f in files if (found := _jax_package_imports(f))}
+    assert not offenders, offenders
+    # the check itself sees direct, lazy and dynamic imports
+    probe = tmp_path / "import_probe.py"
+    probe.write_text("import hipporag_tpu.config\ndef f():\n    from hipporag_tpu import x\n"
+                     "    importlib.import_module('hipporag_tpu.llm')\nfrom hipporag_tpu_torch import y\n")
+    assert sorted(_jax_package_imports(str(probe))) == ["hipporag_tpu", "hipporag_tpu.config", "hipporag_tpu.llm"]
 
 
 @pytest.mark.parametrize(

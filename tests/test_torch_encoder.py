@@ -23,8 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from hipporag_tpu.config import BaseConfig
+from hipporag_tpu.config import BaseConfig as RefConfig
 from hipporag_tpu.embedding import jax_encoder as ref
+from hipporag_tpu_torch.config import BaseConfig
 from hipporag_tpu_torch.convert import encoder_params_from_jax
 from hipporag_tpu_torch.embedding import encoder as port
 from hipporag_tpu_torch.embedding import get_embedding_model
@@ -117,10 +118,9 @@ def _texts(seed=0):
 def test_hash_tokenizer_and_buckets_equal(tmp_path, max_seq_len):
     """Id for id, with the cut to 512 positions after the tokenizer's
     truncation (a 600-word text keeps 512 ids and loses [SEP])."""
-    cfg = BaseConfig(embedding_model_name="jax/random-64x2", save_dir=str(tmp_path),
-                     embedding_max_seq_len=max_seq_len)
-    jax_model = ref.JaxEncoderEmbeddingModel(cfg)
-    model = port.TorchEncoderEmbeddingModel(cfg, device="cpu")
+    kw = dict(embedding_model_name="jax/random-64x2", save_dir=str(tmp_path), embedding_max_seq_len=max_seq_len)
+    jax_model = ref.JaxEncoderEmbeddingModel(RefConfig(**kw))
+    model = port.TorchEncoderEmbeddingModel(BaseConfig(**kw), device="cpu")
     texts = _texts()
     for batch in (texts, texts[:2], texts[3:4], texts[4:]):
         want_ids, want_mask = jax_model.pretokenize(batch)
@@ -137,10 +137,10 @@ def test_hash_tokenizer_and_buckets_equal(tmp_path, max_seq_len):
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_embedding_model_matches_jax_model(tmp_path, compute_dtype):
-    cfg = BaseConfig(embedding_model_name="jax/random-64x2", save_dir=str(tmp_path),
-                     embedding_model_dtype=compute_dtype, embedding_batch_size=4)
-    want = ref.JaxEncoderEmbeddingModel(cfg).batch_encode(_texts(), norm=True)
-    model = get_embedding_model(cfg, device="cpu")
+    kw = dict(embedding_model_name="jax/random-64x2", save_dir=str(tmp_path),
+              embedding_model_dtype=compute_dtype, embedding_batch_size=4)
+    want = ref.JaxEncoderEmbeddingModel(RefConfig(**kw)).batch_encode(_texts(), norm=True)
+    model = get_embedding_model(BaseConfig(**kw), device="cpu")
     assert isinstance(model, port.TorchEncoderEmbeddingModel)
     got = model.batch_encode(_texts(), norm=True)
     assert got.dtype == np.float32 and model.embedding_dim == 64
@@ -162,10 +162,9 @@ def test_bucket_padding_consistency(tmp_path):
     "dtype,expected", [("auto", "bfloat16"), ("bfloat16", "bfloat16"), ("float32", "float32"),
                        ("float16", "float32")])
 def test_compute_dtype_mapping(tmp_path, dtype, expected):
-    cfg = BaseConfig(embedding_model_name="jax/random-64x1", save_dir=str(tmp_path),
-                     embedding_model_dtype=dtype)
-    model = port.TorchEncoderEmbeddingModel(cfg, device="cpu")
-    assert model.compute_dtype == ref.JaxEncoderEmbeddingModel(cfg).compute_dtype == expected
+    kw = dict(embedding_model_name="jax/random-64x1", save_dir=str(tmp_path), embedding_model_dtype=dtype)
+    model = port.TorchEncoderEmbeddingModel(BaseConfig(**kw), device="cpu")
+    assert model.compute_dtype == ref.JaxEncoderEmbeddingModel(RefConfig(**kw)).compute_dtype == expected
     # linear weights are held once as product operands: bf16-rounded float32 on the CPU
     w = model.encoder.layers[0].q_w
     assert w.dtype == torch.float32
@@ -173,7 +172,7 @@ def test_compute_dtype_mapping(tmp_path, dtype, expected):
 
 
 def test_non_jax_names_go_to_the_host_factory(tmp_path):
-    from hipporag_tpu.embedding.mock import MockEmbeddingModel
+    from hipporag_tpu_torch.embedding.mock import MockEmbeddingModel
 
     cfg = BaseConfig(embedding_model_name="mock", save_dir=str(tmp_path))
     assert isinstance(get_embedding_model(cfg, device="cpu"), MockEmbeddingModel)

@@ -200,3 +200,29 @@ def test_arranged_queries_layout(b, width):
     stacked = torch.stack(parts).numpy()
     want = stacked[part, qc * width + n, 32 * s + 8 * c + 2 * j + h]
     np.testing.assert_array_equal(arr.numpy(), want)
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_ties_to_the_last_bit_resolve_the_same_in_any_batch(k):
+    """Keys whose scores tie exactly in real arithmetic but may round apart
+    in float32 (the same products summed in another order): the query's
+    top-k, in batches of 1 to 130 rows, is the float64 scores rounded to
+    float32 with ties to the lower key, and identical in every batch."""
+    from hipporag_tpu_torch.ops.scoring import topk_lower_index
+
+    rng = np.random.default_rng(11)
+    n, d = 1024, 96
+    q = rng.standard_normal((1, d)).astype(np.float32)
+    q[0, 1] = q[0, 0]
+    keys = rng.standard_normal((n, d)).astype(np.float32)
+    keys[1::2] = keys[::2]
+    keys[1::2, 0], keys[1::2, 1] = keys[::2, 1], keys[::2, 0]  # a swapped pair: the same score
+    keys_t = torch.from_numpy(keys)
+    want_vals, want_idx = topk_lower_index((keys_t.double() @ torch.from_numpy(q).double().T).T.float(), k)
+    ranked = want_idx[0].tolist()
+    assert all(i - 1 in ranked[:pos] for pos, i in enumerate(ranked) if i % 2)  # ties: the lower key first
+    for b in (1, 5, 16, 130):
+        queries = np.concatenate([rng.standard_normal((b - 1, d)).astype(np.float32), q])
+        _norm, raw, idx = fused_topk.fused_score_topk_reference(torch.from_numpy(queries), keys_t, n, k)
+        assert torch.equal(idx[-1:].long(), want_idx), b
+        assert torch.equal(raw[-1:], want_vals), b

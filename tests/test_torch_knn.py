@@ -41,7 +41,7 @@ def _check_equal(got, want):
 @pytest.mark.parametrize("k", [5, 400])
 def test_shared_queries_keys_pairs_match_jax(qbs, kbs, k):
     x = _clustered(150, 32, seed=k)
-    got = knn.retrieve_knn_pairs(x, x, 150, k, 0.8, query_batch_size=qbs, key_batch_size=kbs)
+    got = knn.retrieve_knn_pairs(x, x, 150, k, 0.8, query_batch_size=qbs, key_batch_size=kbs, device="cpu")
     want = ref.retrieve_knn_pairs(x, x, 150, k, 0.8, query_batch_size=qbs, key_batch_size=kbs)
     assert len(want[0]) > 150  # self pairs plus planted neighbours
     _check_equal(got, want)
@@ -50,7 +50,7 @@ def test_shared_queries_keys_pairs_match_jax(qbs, kbs, k):
 def test_separate_keys_with_padding_rows_match_jax():
     q = _clustered(40, 16, seed=1)
     keys = np.concatenate([_clustered(60, 16, seed=1), np.zeros((4, 16), np.float32)])
-    got = knn.retrieve_knn_pairs(q, keys, 60, 10, 0.5, query_batch_size=16, key_batch_size=32)
+    got = knn.retrieve_knn_pairs(q, keys, 60, 10, 0.5, query_batch_size=16, key_batch_size=32, device="cpu")
     want = ref.retrieve_knn_pairs(q, keys, 60, 10, 0.5, query_batch_size=16, key_batch_size=32)
     _check_equal(got, want)
 
@@ -61,7 +61,7 @@ def test_hashing_embedder_entity_vectors_match_jax():
              "juniper laboratories"]
     model = HashingNgramEmbeddingModel(BaseConfig(embedding_model_name="hashing"))
     x = np.asarray(model.batch_encode(names, norm=True), np.float32)
-    got = knn.retrieve_knn_pairs(x, x, len(names), 108, 0.3)
+    got = knn.retrieve_knn_pairs(x, x, len(names), 108, 0.3, device="cpu")
     want = ref.retrieve_knn_pairs(x, x, len(names), 108, 0.3)
     _check_equal(got, want)
 
