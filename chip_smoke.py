@@ -5,8 +5,9 @@
 
 from the repository root, on a machine with a CUDA GPU, nvcc and PyTorch
 built for CUDA (no JAX needed). It builds the hand-written CUDA kernel from
-``hipporag_tpu_torch/csrc`` and runs six phases; any failure ends the run
-with a non-zero exit:
+``hipporag_tpu_torch/csrc`` and the native graph core from
+``hipporag_tpu_torch/graph/native`` and runs seven phases; any failure ends
+the run with a non-zero exit:
 
 1. Kernel vs plain: ``fused_score_topk`` (CUDA pass A) against
    ``fused_score_topk_reference`` (plain PyTorch pass A) and against
@@ -57,6 +58,21 @@ with a non-zero exit:
    index -> delete -> retrieve -> re-index -> retrieve on the sample corpus
    is held to ``tests/fixtures/torch_port_lifecycle_expected.json`` (the JAX
    package) in float32 and bfloat16.
+7. The rest of the single-device port: (a) COO PPR (``batched_ppr``, edge
+   chunks 1 and 4 with f32 gathers, bf16 gathers) and (b) the Chebyshev
+   iteration on phase 2's graph and resets, held to the ELL power iteration
+   and to float64 scipy, a COO rerun bit-identical, with iterations, ms and
+   peak memory; (c) ``HippoRAG(ppr_format="coo")`` on the sample corpus in
+   float32 and bfloat16, held to ``tests/fixtures/torch_port_coo_expected.json``;
+   on phase 6's live index, (e) one 128-query ``retrieve`` with
+   ``profile_log_dir`` set, its trace read back for K1's kernel, the PPR
+   gathers, the device idle share and graph search's device/host split, and
+   (d) the index re-prepared as COO: its rankings equal the ELL path's and
+   both hold to the native float64 serial solver (``exact_rank_check``),
+   with the NumPy twin beside them; (f) 100 AdamW steps of the adapter at
+   NV-Embed-v2's width, the first 5 losses equal to the same steps on the
+   CPU; (g) ``run_multihop_eval`` on the card against
+   ``tests/fixtures/torch_port_multihop_expected.json``.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Neither JAX nor ``hipporag_tpu`` may be
@@ -95,6 +111,8 @@ from hipporag_tpu_torch.models.retrieval import (  # noqa: E402
 )
 from hipporag_tpu_torch.ops import _kernels, fused_topk  # noqa: E402
 from hipporag_tpu_torch.ops.pagerank import (  # noqa: E402
+    COOGraph,
+    batched_ppr,
     batched_ppr_ell,
     ell_from_coo,
     ell_gathered_rows_per_iter,
@@ -158,6 +176,26 @@ NEW_PASSAGE_PROBES = 8
 # batch-mates: served and direct scores may differ by about ppr_tol, and
 # passages that close may trade places
 PARITY_ATOL = 2e-6
+# phase 7: the COO operator, Chebyshev, profiling, the adapter, multihop
+COO_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_coo_expected.json")
+COO_CONFIG = dict(llm_name="mock", embedding_model_name="mock", vector_store_type="memory",
+                  ppr_format="coo")
+COO_SCORE_ATOL = LIFECYCLE_SCORE_ATOL
+MULTIHOP_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_multihop_expected.json")
+COO_EDGE_CHUNKS = (1, 4)
+# float64 scipy over the first 8 queries of the bucket (all 128 against ELL)
+SCIPY_QUERIES = 8
+# bf16 gathers: each gathered term carries up to three bf16 roundings
+# (p, w and their product, 2^-9 each) and d·y <= p, so the fixed point
+# moves by at most 3·2^-9 / (1 - d) · max p (PERF.md states it)
+BF16_TERM_RTOL = 3 * 2.0**-9
+# served index: top-20 set overlap with the float64 tol-1e-12 serial solver
+EXACT_TOP_K, EXACT_AGREEMENT_MIN = 20, 0.99
+PROFILE_QUERIES = 128
+PROFILE_DIR = os.path.join(ROOT, "build", "profile", "served")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the adapter at NV-Embed-v2's width (the reference's default embedder)
+ADAPTER = dict(dim=4096, hidden=1024, pairs=1024, steps=100, cpu_steps=5, lr=1e-3)
 
 
 def scan_delta(q, keys):
@@ -544,7 +582,7 @@ def phase2(device, sizes, seed=0):
         "setup_s": bucket["setup_s"],
     }
     log("phase 2: " + json.dumps(detail))
-    return big, launches, detail
+    return big, launches, detail, bucket
 
 
 def phase3(device, compute_dtype="float32"):
@@ -1130,10 +1168,12 @@ def index_corpus(rag, docs):
     }
 
 
-def phase6(device, sizes=None, seed=0):
+def phase6(device, sizes=None, seed=0, served=None):
     """Index the synthetic corpus, check served against direct rankings,
     then drive the native and the stdlib front ends with concurrent clients
-    while ``/index`` and ``/delete`` mutate the live index."""
+    while ``/index`` and ``/delete`` mutate the live index. ``served(rag,
+    parity_queries)``, when given, runs last on the live index; its result
+    is ``out["served_extra"]``."""
     import threading
 
     from hipporag_tpu_torch.serving import RetrievalService
@@ -1279,10 +1319,13 @@ def phase6(device, sizes=None, seed=0):
             svc.close()
         sync()
         launches = fused_topk.SCAN_LAUNCHES.count
+        peak = peak_memory()
         check(launches > 0, "phase 6: serving did not launch the fused kernel")
         for lane in ("retrieve", "qa"):
             check(final[lane]["failed_batches"] == 0 and final[lane]["pending"] == 0,
                   f"phase 6: {lane} lane {final[lane]}")
+        # phase 7 (d, e) on the same live index
+        extra = served(rag, parity) if served is not None else None
 
     lane = {k: after["retrieve"][k] - before["retrieve"][k] for k in ("requests", "batches", "shed")}
     out.update({
@@ -1299,12 +1342,13 @@ def phase6(device, sizes=None, seed=0):
         "native_retrieve_only": native_short,
         "stdlib": std_short,
         "index_ms": mutations["index"]["ms"], "delete_ms": mutations["delete"]["ms"],
-        "kernel_launches": launches, "peak_memory_bytes": peak_memory(),
+        "kernel_launches": launches, "peak_memory_bytes": peak,
         "service": {k: final[k] for k in ("dedup_saved", "response_cache")},
         "lanes": {k: {f: final[k][f] for f in ("requests", "batches", "failed_batches", "shed", "pending",
                                                "mean_batch_size")} for k in ("retrieve", "qa")},
     })
     log("phase 6: " + json.dumps(out))
+    out["served_extra"] = extra
     return out
 
 
@@ -1324,6 +1368,329 @@ def phase6_lifecycle(device):
     log(f"phase 6 lifecycle: index -> delete -> retrieve -> re-index -> retrieve equals the JAX package "
         f"(float32 and bfloat16); max score diff {json.dumps(worst)}")
     return worst
+
+
+# ----------------------------------------------------------------------
+# Phase 7: the COO operator, Chebyshev, profile_log_dir, the adapter and
+# the multihop harness
+# ----------------------------------------------------------------------
+def coo_record(rag, data):
+    """index -> retrieve -> rag_qa on the sample ``data``, in the fixture's form."""
+    docs, queries, gold_docs, gold_answers = data
+    rag.index(docs)
+    return {
+        "hipporag.retrieve": _solutions(rag.retrieve(queries)),
+        "hipporag.rag_qa": _rag_qa(rag.rag_qa(queries, gold_docs=gold_docs, gold_answers=gold_answers)),
+    }
+
+
+def merged_busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def top_agreement(got, want, k=20):
+    """(mean top-k set overlap, share of rows with the same top-k order) of
+    two [B, N] score tensors; orders from a stable descending sort."""
+    g = torch.sort(got, dim=1, descending=True, stable=True).indices[:, :k].cpu().numpy()
+    w = torch.sort(want, dim=1, descending=True, stable=True).indices[:, :k].cpu().numpy()
+    overlap = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(g, w)]))
+    return overlap, float(np.mean([np.array_equal(a, b) for a, b in zip(g, w)]))
+
+
+def bucket_reset(bucket):
+    """The phase-2 bucket's [B, N_cap] PPR resets, as graph_search_batch builds them."""
+    sizes, index = bucket["sizes"], bucket["index"]
+    k = sizes["link_top_k"]
+    dpr = batched_scores(bucket["qp"], bucket["passage_emb"])
+    cand_vals, cand_idx = fact_topk(bucket["qf"], bucket["fact_emb"], sizes["facts"], k)
+    reset, _dpr_norm, _p_valid = seed_reset_batch(index, cand_vals, cand_idx, fallback_mask(bucket), dpr, k, 0.05)
+    return reset
+
+
+def phase7_graph(device, bucket):
+    """(a) COO PPR and (b) Chebyshev at the bench headline graph, on the
+    phase-2 bucket's resets, held to the ELL power iteration (all 128
+    queries) and to float64 scipy (the first ``SCIPY_QUERIES``)."""
+    sizes, index = bucket["sizes"], bucket["index"]
+    n = sizes["nodes"]
+    s2, d2, w2, dangling = bucket["coo"]
+    coo = COOGraph(src=s2, dst=d2, w_norm=w2, dangling=dangling, num_nodes=np.asarray(n, np.int32)).to(device)
+    reset = bucket_reset(bucket)
+    kw = dict(damping=DAMPING, max_iters=PPR_MAX_ITERS, tol=PPR_TOL, return_iters=True)
+    solvers = {
+        "ell_power": lambda: batched_ppr_ell(index.graph, reset, **kw),
+        "ell_chebyshev": lambda: batched_ppr_ell(index.graph, reset, accel="chebyshev", **kw),
+        **{f"coo_f32_chunks{c}": (lambda c=c: batched_ppr(coo, reset, edge_chunks=c, **kw)) for c in COO_EDGE_CHUNKS},
+        "coo_bf16_chunks1": lambda: batched_ppr(coo, reset, compute_dtype="bfloat16", **kw),
+    }
+    runs, results = {}, {}
+    for name, fn in solvers.items():
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        p, iters = fn()
+        sync()
+        peak = peak_memory() - base
+        ms = time_ms(fn, reps=3)
+        it = int(iters.max())
+        results[name] = p[:, :n]
+        runs[name] = {"iters_per_tile": iters[::128].tolist(), "ms": ms, "ms_per_iter": ms / it,
+                      "peak_bytes_above_inputs": peak}
+    again, _ = solvers["coo_f32_chunks1"]()
+    check(torch.equal(again[:, :n], results["coo_f32_chunks1"]), "phase 7a: a COO rerun is not bit-identical")
+
+    ref = scipy_ppr(s2, d2, w2, dangling, n, reset[:SCIPY_QUERIES, :n].cpu().numpy(), DAMPING)
+    ref_t = torch.from_numpy(ref).to(device)
+    ell = results["ell_power"]
+    bf16_bound = BF16_TERM_RTOL / (1 - DAMPING) * float(ell.max()) + PPR_TOL
+    for name, p in results.items():
+        r = runs[name]
+        bound = bf16_bound if "bf16" in name else 1e-6
+        r["bound"] = bound
+        r["max_abs_vs_ell"] = float((p - ell).abs().max())
+        r["max_abs_vs_scipy"] = float((p[:SCIPY_QUERIES].double() - ref_t).abs().max())
+        r["top20_vs_ell"] = top_agreement(p, ell)
+        r["top20_vs_scipy"] = top_agreement(p[:SCIPY_QUERIES].double(), ref_t)
+        check(r["max_abs_vs_scipy"] <= bound, f"phase 7 {name}: max|err| vs float64 scipy {r['max_abs_vs_scipy']} > {bound}")
+        check(r["max_abs_vs_ell"] <= bound, f"phase 7 {name}: max|err| vs the ELL solver {r['max_abs_vs_ell']} > {bound}")
+        if "bf16" not in name:
+            check(r["top20_vs_ell"][0] == 1.0 and r["top20_vs_scipy"][0] == 1.0,
+                  f"phase 7 {name}: top-20 agreement {r['top20_vs_ell']} / {r['top20_vs_scipy']}")
+    log(f"phase 7a/b: PPR at {n} nodes, {len(s2)} directed entries, B={reset.shape[0]}, d={DAMPING}, "
+        f"tol {PPR_TOL}; COO rerun bit-identical; " + json.dumps(runs))
+    return runs
+
+
+def trace_summary(path, annotation="retrieve/graph_search"):
+    """Device busy time, span and idle share of a chrome trace, and the
+    host time of the ``annotation`` ranges beside the device time inside them."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS]
+    intervals = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev]
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+              if e.get("name") == annotation and e.get("cat") == "user_annotation"]
+    busy = merged_busy_us(intervals)
+    span = (max(e for _, e in intervals) - min(s for s, _ in intervals)) if intervals else 0.0
+    range_host = sum(e - s for s, e in ranges)
+    range_dev = sum(merged_busy_us([(max(s, a), min(e, b)) for s, e in intervals if s < b and e > a])
+                    for a, b in ranges)
+    kernels = sorted({e["name"] for e in dev if e.get("cat") == "kernel"})
+    ops = sorted({e["name"] for e in events if e.get("cat") == "cpu_op"})
+    return {
+        "device_activities": len(dev), "device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
+        "idle_share": 1.0 - busy / span if span > 0 else None,
+        "graph_search_ranges": len(ranges), "graph_search_host_ms": range_host / 1e3,
+        "graph_search_device_busy_ms": range_dev / 1e3,
+        "graph_search_device_share": range_dev / range_host if range_host > 0 else None,
+        "k1_kernels": [k for k in kernels if "scan_kernel" in k],
+        "gather_kernels": [k[:80] for k in kernels if "gather" in k or "index_elementwise" in k or "indexSelect" in k],
+        "gather_ops": [o for o in ops if o in ("aten::index", "aten::index_select")],
+    }
+
+
+def near_tie_trades(got, want, atol, what):
+    """Two rankings of the same queries: at every rank the scores agree
+    within ``atol``, and where the passages differ they are a near tie.
+    Returns the number of traded positions."""
+    trades = 0
+    for g, w in zip(got, want):
+        check(g.question == w.question and len(g.docs) == len(w.docs), f"{what}: {w.question!r} differs in length")
+        want_score = dict(zip(w.docs, w.doc_scores.tolist()))
+        for pos, (doc, score) in enumerate(zip(g.docs, g.doc_scores.tolist())):
+            check(abs(score - float(w.doc_scores[pos])) <= atol, f"{what}: rank {pos} of {w.question!r} scores apart")
+            if doc != w.docs[pos]:
+                trades += 1
+                check(doc not in want_score or abs(want_score[doc] - float(w.doc_scores[pos])) <= atol,
+                      f"{what}: rank {pos} of {w.question!r} differs beyond a near tie")
+    return trades
+
+
+def phase7_served(rag, parity):
+    """(d) the served index re-prepared as COO: rankings equal to the ELL
+    path's, both held to the native float64 serial solver with the NumPy
+    twin beside them; (e) one ``profile_log_dir`` retrieve on ELL first."""
+    import glob
+    import shutil
+
+    from hipporag_tpu_torch.evaluation.twiki import _twin_seeds, exact_rank_check, numpy_retrieval_twin
+    from hipporag_tpu_torch.graph import native
+
+    cfg = rag.global_config
+    out = {}
+    t0 = time.perf_counter()
+    ell_sols = rag.retrieve(parity, num_to_retrieve=cfg.retrieval_top_k)
+    out["ell_retrieve_s"] = time.perf_counter() - t0
+
+    # (e) profile_log_dir on the ELL path
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    cfg.profile_log_dir = PROFILE_DIR
+    fused_topk.SCAN_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    rag.retrieve(parity[:PROFILE_QUERIES], num_to_retrieve=cfg.retrieval_top_k)
+    out["profiled_retrieve_s"] = time.perf_counter() - t0
+    out["profiled_k1_launches"] = fused_topk.SCAN_LAUNCHES.count
+    cfg.profile_log_dir = None
+    traces = glob.glob(os.path.join(PROFILE_DIR, "trace-*.json"))
+    check(len(traces) == 1, f"phase 7e: expected one trace in {PROFILE_DIR}, found {traces}")
+    prof = out["profile"] = {"trace": os.path.relpath(traces[0], ROOT), **trace_summary(traces[0])}
+    check(prof["device_activities"] > 0, "phase 7e: the trace holds no device activity")
+    check(bool(prof["k1_kernels"]), "phase 7e: the trace does not name K1's kernel")
+    check(bool(prof["gather_kernels"]) and bool(prof["gather_ops"]), "phase 7e: the trace does not name the PPR gathers")
+    check(prof["graph_search_ranges"] > 0, "phase 7e: no retrieve/graph_search range in the trace")
+    log("phase 7e: profile_log_dir over one retrieve of "
+        f"{PROFILE_QUERIES} queries on the served index: " + json.dumps(prof))
+
+    # (d) the same index as COO
+    cfg.ppr_format = "coo"
+    t0 = time.perf_counter()
+    rag.prepare_retrieval_objects()
+    sync()
+    out["coo_prepare_s"] = time.perf_counter() - t0
+    graph = rag._index_state.graph
+    check(type(graph) is COOGraph and graph.src.device.type == torch.device(rag.device).type,
+          "phase 7d: the served index is not a COO operator on the card")
+    fused_topk.SCAN_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    coo_sols = rag.retrieve(parity, num_to_retrieve=cfg.retrieval_top_k)
+    out["coo_retrieve_s"] = time.perf_counter() - t0
+    out["coo_k1_launches"] = fused_topk.SCAN_LAUNCHES.count
+    check(out["coo_k1_launches"] > 0, "phase 7d: the COO retrieve did not launch the fused kernel")
+    out["coo_vs_ell_trades"] = near_tie_trades(coo_sols, ell_sols, PARITY_ATOL, "phase 7d COO vs ELL")
+
+    check(native.native_available(), f"phase 7d: the native graph core did not build: {native.build_error}")
+    t0 = time.perf_counter()
+    seeds = _twin_seeds(rag, parity)
+    twin = numpy_retrieval_twin(rag, parity, top_k=EXACT_TOP_K, seeds=seeds)
+    exact = {name: exact_rank_check(rag, parity, docs, top_k=EXACT_TOP_K, seeds=seeds)
+             for name, docs in (("ell", [s.docs for s in ell_sols]), ("coo", [s.docs for s in coo_sols]),
+                                ("numpy_twin", twin))}
+    out["exact_check_s"] = time.perf_counter() - t0
+    out["exact"] = exact
+    out["twin_vs_ell_overlap"] = float(np.mean([
+        len(set(t) & set(s.docs[:EXACT_TOP_K])) / max(1, min(EXACT_TOP_K, len(s.docs)))
+        for t, s in zip(twin, ell_sols)]))
+    for name in ("ell", "coo"):
+        check(exact[name]["solver"] == "native_ppr_serial", f"phase 7d: exact solver {exact[name]['solver']}")
+        check(exact[name]["agreement"] >= EXACT_AGREEMENT_MIN,
+              f"phase 7d: {name} top-{EXACT_TOP_K} agreement with ppr_serial {exact[name]['agreement']} "
+              f"< {EXACT_AGREEMENT_MIN}")
+    log(f"phase 7d: {len(parity)} parity queries on the served index as COO rank as ELL "
+        f"({out['coo_vs_ell_trades']} near-tie trades, |Δ| ≤ {PARITY_ATOL}); " + json.dumps(
+            {k: v for k, v in out.items() if k != "profile"}))
+    return out
+
+
+def phase7_sample(device):
+    """(c) ``HippoRAG(ppr_format="coo")`` on the sample corpus in float32
+    and bfloat16, held to the JAX package's fixture."""
+    with open(COO_FIXTURE) as fh:
+        fixture = json.load(fh)
+    data = load_dataset("sample", os.path.join(ROOT, "data"))
+    out = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for dtype, want in fixture["records"].items():
+            cfg = BaseConfig(save_dir=os.path.join(tmp, dtype), compute_dtype=dtype, **fixture["config"])
+            rag = HippoRAG(cfg, device=device)
+            fused_topk.SCAN_LAUNCHES.reset()
+            got = coo_record(rag, data)
+            launches = fused_topk.SCAN_LAUNCHES.count
+            graph = rag._index_state.graph
+            check(type(graph) is COOGraph and graph.src.device.type == torch.device(device).type,
+                  f"phase 7c ({dtype}): not a COO operator on the card")
+            check(launches > 0, f"phase 7c ({dtype}): retrieve did not launch the fused kernel")
+            out[dtype] = {"max_score_diff": compare_records(got, want, COO_SCORE_ATOL[dtype]),
+                          "kernel_launches": launches}
+    log("phase 7c: HippoRAG(ppr_format='coo') on the sample corpus equals the JAX package (float32 and "
+        "bfloat16); " + json.dumps(out))
+    return out
+
+
+def adapter_flops(dim, hidden, pairs):
+    """Products of one step: forward x·w_in, h·w_out and the [B, B] logits
+    (2 B D H + 2 B H D + 2 B B D), backward twice that."""
+    return 3 * (4 * pairs * dim * hidden + 2 * pairs * pairs * dim)
+
+
+def phase7_adapter(device, sizes=ADAPTER, seed=0):
+    """(f) AdamW steps of the adapter at NV-Embed-v2's width on (query,
+    positive) pairs, positives a random rotation of the queries (as
+    ``tests/test_parallel.py`` builds them, then L2-normalized); the first
+    steps equal the same steps on the CPU."""
+    from hipporag_tpu_torch.models.adapter import AdapterParams, adamw, init_adapter, make_train_step
+
+    d, h, b = sizes["dim"], sizes["hidden"], sizes["pairs"]
+    rng = np.random.default_rng(seed)
+    queries = rng.standard_normal((b, d), dtype=np.float32)
+    rot = torch.linalg.qr(torch.from_numpy(rng.standard_normal((d, d))).to(device))[0]
+    # unit rows, as the embedders give them: raw Gaussian rows of norm
+    # sqrt(D) = 64 make the logits ~64x larger and the loss reaches 0 in
+    # four steps, which leaves nothing to compare
+    q = torch.nn.functional.normalize(torch.from_numpy(queries).to(device), dim=1)
+    pos = torch.nn.functional.normalize((q.double() @ rot).float(), dim=1)
+    params = init_adapter(d, h, generator=torch.Generator().manual_seed(seed), device=device)
+    cpu_params = AdapterParams(*(p.detach().cpu().clone().requires_grad_() for p in params))
+
+    step = make_train_step(adamw(params, sizes["lr"]))
+    losses = [step(params, q, pos)]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(sizes["steps"] - 1):
+        losses.append(step(params, q, pos))
+    end.record()
+    sync()
+    ms = start.elapsed_time(end) / (sizes["steps"] - 1)
+    losses = torch.stack(losses).cpu().tolist()
+
+    t0 = time.perf_counter()
+    cpu_step = make_train_step(adamw(cpu_params, sizes["lr"]))
+    q_cpu, pos_cpu = q.cpu(), pos.cpu()
+    cpu_losses = [float(cpu_step(cpu_params, q_cpu, pos_cpu)) for _ in range(sizes["cpu_steps"])]
+    cpu_s = time.perf_counter() - t0
+    flops = adapter_flops(d, h, b)
+    out = {"dim": d, "hidden": h, "pairs": b, "steps": sizes["steps"], "lr": sizes["lr"],
+           "ms_per_step": ms, "gflop_per_step": flops / 1e9, "f32_tflops": flops / ms / 1e9,
+           "bound_ms": flops / F32_PEAK_FLOPS * 1e3, "first_losses": losses[:sizes["cpu_steps"]],
+           "cpu_losses": cpu_losses, "last_loss": losses[-1], "cpu_s": cpu_s}
+    check(all(np.isfinite(losses)), "phase 7f: a loss is not finite")
+    check(np.allclose(losses[:sizes["cpu_steps"]], cpu_losses, rtol=1e-4, atol=0.0),
+          f"phase 7f: the card's first losses {losses[:5]} differ from the CPU's {cpu_losses}")
+    check(losses[-1] < losses[0], f"phase 7f: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    log("phase 7f: adapter AdamW steps: " + json.dumps(out))
+    return out
+
+
+def phase7_multihop(device):
+    """(g) ``run_multihop_eval`` on the card, held to the JAX package's numbers."""
+    from hipporag_tpu_torch.evaluation.multihop import run_multihop_eval
+
+    with open(MULTIHOP_FIXTURE) as fh:
+        want = json.load(fh)["result"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        fused_topk.SCAN_LAUNCHES.reset()
+        t0 = time.perf_counter()
+        got = run_multihop_eval(save_dir=tmp, device=device)
+        wall = time.perf_counter() - t0
+        launches = fused_topk.SCAN_LAUNCHES.count
+    check("multihop3_error" not in got, f"phase 7g: {got.get('multihop3_error')}")
+    check(got == want, f"phase 7g: {got} != the JAX package's {want}")
+    check(launches > 0, "phase 7g: the multihop runs did not launch the fused kernel")
+    out = {"result": got, "wall_s": wall, "kernel_launches": launches}
+    log("phase 7g: run_multihop_eval on the card equals the JAX package: " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -1350,14 +1717,24 @@ def main() -> int:
         log(f"  nvcc: {line}")
     log("kernel shared memory per block (bytes, ring stages): " + json.dumps(scan_layouts()))
 
+    start = time.perf_counter()
+    from hipporag_tpu_torch.graph import native as graph_native
+
+    check(graph_native.native_available(), f"the native graph core did not build: {graph_native.build_error}")
+    log(f"native graph core: {os.path.relpath(graph_native.library_path(), ROOT)} "
+        f"({time.perf_counter() - start:.1f} s to build and load)")
+
     phase1_grid(device)
     phase1_near_ties(device)
-    big, launches, detail = phase2(device, FULL)
+    big, launches, detail, bucket = phase2(device, FULL)
+    p7 = {"graph": phase7_graph(device, bucket)}
+    del bucket
+    torch.cuda.empty_cache()
     detail["phase3"] = {dt: phase3(device, dt) for dt in ("float32", "bfloat16")}
     log("phase 3: " + json.dumps(detail["phase3"]))
     phase4(device)
     p5 = phase5(device)
-    p6 = phase6(device)
+    p6 = phase6(device, served=phase7_served)
     lifecycle = phase6_lifecycle(device)
     native, std = p6["native"], p6["stdlib"]
     log(f"phase 6 summary on {smi}: " + json.dumps({
@@ -1374,6 +1751,21 @@ def main() -> int:
         "kernel_launches": p6["kernel_launches"], "peak_memory_bytes": p6["peak_memory_bytes"],
         "lifecycle_max_score_diff": lifecycle,
     }))
+    p7["served"] = p6["served_extra"]
+    p7["sample"] = phase7_sample(device)
+    p7["adapter"] = phase7_adapter(device)
+    p7["multihop"] = phase7_multihop(device)
+    graph, served = p7["graph"], p7["served"]
+    log(f"phase 7 summary on {smi}: " + json.dumps({
+        "ppr_ms": {k: v["ms"] for k, v in graph.items()},
+        "ppr_ms_per_iter": {k: v["ms_per_iter"] for k, v in graph.items()},
+        "ppr_iters": {k: v["iters_per_tile"] for k, v in graph.items()},
+        "ppr_peak_bytes_above_inputs": {k: v["peak_bytes_above_inputs"] for k, v in graph.items()},
+        "ppr_max_abs_vs_scipy": {k: v["max_abs_vs_scipy"] for k, v in graph.items()},
+        "served_coo_vs_ell_trades": served["coo_vs_ell_trades"],
+        "served_exact": served["exact"], "served_profile": served["profile"],
+        "adapter_ms_per_step": p7["adapter"]["ms_per_step"], "multihop": p7["multihop"]["result"],
+    }))
 
     f32, bf16 = big["f32"], big["bf16"]
     kernels = [{
@@ -1387,6 +1779,10 @@ def main() -> int:
             **{f"phase3_{dt}": d["kernel_launches"] for dt, d in detail["phase3"].items()},
             "phase5_retrieve": p5["kernel_launches"],
             "phase6_serving": p6["kernel_launches"],
+            **{f"phase7c_coo_sample_{dt}": d["kernel_launches"] for dt, d in p7["sample"].items()},
+            "phase7d_served_coo": served["coo_k1_launches"],
+            "phase7e_profiled_retrieve": served["profiled_k1_launches"],
+            "phase7g_multihop": p7["multihop"]["kernel_launches"],
         },
         "max_abs_err": f32["err"],
         "delta_bound": f32["delta"],

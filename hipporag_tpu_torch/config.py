@@ -127,8 +127,8 @@ class BaseConfig:
     # >1 streams the edge list in chunks through the SpMV so huge graphs
     # (100M+ edges) never materialize the [E, B] gather at once (COO only).
     ppr_edge_chunks: int = 1
-    # "ell": scatter-free bucketed-ELL SpMV (the only format the port runs);
-    # "coo": segment-sum form (supports edge_chunks + bf16 gathers).
+    # "ell": scatter-free bucketed-ELL SpMV; "coo": gather + segment sum over
+    # the dst-sorted edge list (supports edge_chunks + bf16 gathers).
     ppr_format: Literal["ell", "coo"] = "ell"
     # Overlap bucket N's host-side recognition-memory LLM calls with bucket
     # N-1's device graph search (per-bucket results are independent, so

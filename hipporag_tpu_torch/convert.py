@@ -1,10 +1,11 @@
 """Carry state from the JAX package over to the port.
 
 The retrieval index (graph operator, fact/passage node maps, chunk counts)
-is this system's state; the encoder's parameter pytree is its one model.
-``index_from_numpy`` and ``encoder_params_from_jax`` read every leaf with
-``np.asarray``, so they take the JAX package's arrays as well as plain
-NumPy, and never import JAX themselves.
+is this system's state; the encoder's parameter pytree and the adapter's
+parameters are its models. ``index_from_numpy``, ``encoder_params_from_jax``
+and ``adapter_params_from_jax`` read every leaf with ``np.asarray``, so
+they take the JAX package's arrays as well as plain NumPy, and never import
+JAX themselves.
 """
 
 from __future__ import annotations
@@ -13,8 +14,9 @@ import numpy as np
 import torch
 
 from .embedding.encoder import BertEncoder
+from .models.adapter import AdapterParams
 from .models.retrieval import RetrievalIndex
-from .ops.pagerank import ELLGraph
+from .ops.pagerank import COOGraph, ELLGraph
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -37,12 +39,16 @@ def ell_from_numpy(graph, device) -> ELLGraph:
     )
 
 
+def coo_from_numpy(graph, device) -> COOGraph:
+    """A reference ``COOGraph`` (any array type) as the port's COOGraph on ``device``."""
+    return COOGraph(*(_tensor(getattr(graph, f), device) for f in COOGraph._fields))
+
+
 def index_from_numpy(index, device) -> RetrievalIndex:
-    """A reference ``RetrievalIndex`` over an ``ELLGraph`` as the port's index on ``device``."""
-    if not hasattr(index.graph, "bucket_idx"):
-        raise NotImplementedError("index_from_numpy: only the ELL operator is ported")
+    """A reference ``RetrievalIndex`` (over either operator) as the port's index on ``device``."""
+    convert = ell_from_numpy if hasattr(index.graph, "bucket_idx") else coo_from_numpy
     return RetrievalIndex(
-        graph=ell_from_numpy(index.graph, device),
+        graph=convert(index.graph, device),
         fact_subj_node=_tensor(index.fact_subj_node, device),
         fact_obj_node=_tensor(index.fact_obj_node, device),
         node_chunk_counts=_tensor(index.node_chunk_counts, device),
@@ -62,3 +68,12 @@ def encoder_params_from_jax(params, num_heads: int, compute_dtype: str = "bfloat
     host = {k: leaf(v) for k, v in params.items() if k != "layers"}
     host["layers"] = [{k: leaf(v) for k, v in layer.items()} for layer in params["layers"]]
     return BertEncoder(host, num_heads, compute_dtype, device)
+
+
+def adapter_params_from_jax(params, device="cuda") -> AdapterParams:
+    """The JAX package's ``AdapterParams`` (any array type) as the port's
+    leaf tensors on ``device``, ready for an optimizer."""
+    return AdapterParams(*(
+        _tensor(np.asarray(getattr(params, f), np.float32), device).requires_grad_()
+        for f in AdapterParams._fields
+    ))

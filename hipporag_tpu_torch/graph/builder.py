@@ -3,9 +3,10 @@
 Same class, state and pickle format as ``hipporag_tpu.graph.builder``,
 which cannot be imported without JAX (``hipporag_tpu/graph/__init__.py``
 pulls in the JAX PageRank ops). The only change is ``symmetric_coo``: one
-vectorized NumPy path that reproduces the native C++ ``coo_compile``
-arithmetic exactly (float32 weights accumulated in float64, input order),
-instead of a ctypes call into the JAX package's native library.
+vectorized NumPy path that reproduces the arithmetic of ``coo_compile`` in
+the port's own native core (``graph/native``) exactly (float32 weights
+accumulated in float64, input order), where the JAX package calls its
+native library.
 
 Replaces the igraph C-core graph object (reference: HippoRAG.py:210-241,
 867-1020, 1146-1230) with a plain, picklable edge-dictionary representation

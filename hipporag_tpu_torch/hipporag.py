@@ -4,7 +4,8 @@ index -> retrieve -> rag_qa, the same steps in the same order as the JAX
 package, with the device work in torch on an explicit ``device``:
 
 - **Indexing**: chunks -> OpenIE (host) -> entity/fact stores -> graph
-  builder (host dict) -> synonymy kNN (device) -> padded ELL operator.
+  builder (host dict) -> synonymy kNN (device) -> padded ELL operator
+  (``ppr_format="ell"``) or the padded COO edge list (``"coo"``).
 - **Retrieval**: query embeddings (host) -> DPR passage scores -> fact
   scores and normalized top-k candidates (the fused CUDA kernel on a GPU)
   -> recognition-memory LLM filter (host) -> seeds -> batched PPR ->
@@ -14,7 +15,9 @@ package, with the device work in torch on an explicit ``device``:
 - **IRCoT** (``retrieve_ircot``, ``answer_with_ircot``): batched rounds of
   ``retrieve`` between reasoning steps.
 - **Delete** (``delete``): host-only bookkeeping of stores and graph
-  refcounts; the next retrieve rebuilds the device state.
+  refcounts; the next retrieve rebuilds the device state in either format.
+- **Profiling**: with ``profile_log_dir`` set, the device work of each
+  ``retrieve`` is traced by ``torch.profiler`` into that directory.
 - **QA** through the host-side ``utils/qa_utils``.
 
 The host components (LLMs, stores, OpenIE, prompts, the rerank filter, the
@@ -32,6 +35,7 @@ from typing import Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .config import BaseConfig
 from .evaluation import RetrievalRecall
@@ -52,7 +56,7 @@ from .utils.misc import (
     text_processing,
 )
 from .utils.qa_utils import finish_rag_qa, reason_step
-from .utils.timing import StageTimers
+from .utils.timing import StageTimers, device_profile
 
 from .embedding import get_embedding_model
 from .graph import GraphBuilder, compile_device_graph, pick_capacity
@@ -98,10 +102,6 @@ def _check_supported(cfg: BaseConfig) -> None:
     """Refuse configuration this port does not carry yet."""
     if int(np.prod(cfg.mesh_shape)) > 1:
         raise NotImplementedError("mesh_shape > 1 device: multi-GPU retrieval is not ported")
-    if cfg.ppr_format != "ell":
-        raise NotImplementedError(f"ppr_format={cfg.ppr_format!r}: only 'ell' is ported")
-    if cfg.profile_log_dir:
-        raise NotImplementedError("profile_log_dir: profiling is not ported")
 
 
 class HippoRAG:
@@ -558,33 +558,36 @@ class HippoRAG:
         )
         self._capacities["node"], self._capacities["edge"] = node_cap, edge_cap
 
-        # ELL row caps: tight on the first build; a re-index first tries the
-        # previous caps as minimums and, if the graph outgrew any of them,
-        # rebuilds once with graph_capacity_factor headroom (the JAX
-        # package's policy, kept so the two layouts stay array-identical)
-        def build_ell(min_caps):
-            return ell_from_coo(
-                coo_np.src, coo_np.dst, coo_np.w_norm, coo_np.dangling,
-                int(coo_np.num_nodes), node_cap, min_caps=min_caps,
-            )
+        graph_dev = coo_np
+        if cfg.ppr_format == "ell":
+            # ELL row caps: tight on the first build; a re-index first tries
+            # the previous caps as minimums and, if the graph outgrew any of
+            # them, rebuilds once with graph_capacity_factor headroom (the
+            # JAX package's policy, kept so the two layouts stay
+            # array-identical)
+            def build_ell(min_caps):
+                return ell_from_coo(
+                    coo_np.src, coo_np.dst, coo_np.w_norm, coo_np.dangling,
+                    int(coo_np.num_nodes), node_cap, min_caps=min_caps,
+                )
 
-        prev_caps = self._capacities.get("ell")
-        graph_ell = build_ell(prev_caps)
-        new_caps = ell_caps(graph_ell)
-        if prev_caps is not None and new_caps != prev_caps:
-            f = cfg.graph_capacity_factor
+            prev_caps = self._capacities.get("ell")
+            graph_dev = build_ell(prev_caps)
+            new_caps = ell_caps(graph_dev)
+            if prev_caps is not None and new_caps != prev_caps:
+                f = cfg.graph_capacity_factor
 
-            def grow(c):
-                return -(-int(np.ceil(c * f)) // 128) * 128 if c else 0
+                def grow(c):
+                    return -(-int(np.ceil(c * f)) // 128) * 128 if c else 0
 
-            headroom = {
-                "bucket_rows": tuple(grow(c) for c in new_caps["bucket_rows"]),
-                "hub_rows": grow(new_caps["hub_rows"]),
-                "n_hub_cap": grow(new_caps["n_hub_cap"]),
-            }
-            graph_ell = build_ell(headroom)
-            new_caps = ell_caps(graph_ell)
-        self._capacities["ell"] = new_caps
+                headroom = {
+                    "bucket_rows": tuple(grow(c) for c in new_caps["bucket_rows"]),
+                    "hub_rows": grow(new_caps["hub_rows"]),
+                    "n_hub_cap": grow(new_caps["n_hub_cap"]),
+                }
+                graph_dev = build_ell(headroom)
+                new_caps = ell_caps(graph_dev)
+            self._capacities["ell"] = new_caps
 
         fact_cap = pick_capacity(
             len(self.fact_node_keys), self._capacities["fact"], cfg.graph_capacity_factor, 128
@@ -648,7 +651,7 @@ class HippoRAG:
 
         dev = self.device
         self._index_state = RetrievalIndex(
-            graph=graph_ell.to(dev),
+            graph=graph_dev.to(dev),
             fact_subj_node=torch.from_numpy(fact_subj).to(dev),
             fact_obj_node=torch.from_numpy(fact_obj).to(dev),
             node_chunk_counts=torch.from_numpy(node_chunk_counts).to(dev),
@@ -706,10 +709,11 @@ class HippoRAG:
         self.get_query_embeddings(queries)
         self.embed_time += time.time() - embed_start
 
-        results = self._retrieve_batches(
-            queries, num_to_retrieve, len(self.fact_node_keys),
-            len(self.passage_node_keys), cfg.linking_top_k,
-        )
+        with device_profile(cfg.profile_log_dir, self.device):
+            results = self._retrieve_batches(
+                queries, num_to_retrieve, len(self.fact_node_keys),
+                len(self.passage_node_keys), cfg.linking_top_k,
+            )
 
         self.all_retrieval_time += time.time() - retrieve_start
         logger.info(
@@ -852,28 +856,32 @@ class HippoRAG:
             self.rerank_time += rerank_s  # accumulated on the main thread
             self.topk_time += topk_s
             ppr_start = time.time()
-            if num_facts > 0 and self.graph.num_edges > 0:
-                doc_scores = graph_search_batch(
-                    self._index_state,
-                    torch.from_numpy(sel_scores).to(dev),
-                    torch.from_numpy(top_idx).to(dev),
-                    torch.from_numpy(top_mask).to(dev),
-                    dpr_scores,
-                    link_top_k=link_top_k,
-                    passage_node_weight=cfg.passage_node_weight,
-                    damping=cfg.damping,
-                    ppr_max_iters=cfg.ppr_max_iters,
-                    ppr_tol=cfg.ppr_tol,
-                    ppr_dtype=cfg.ppr_compute_dtype,
-                )
-            else:
-                valid = (torch.arange(dpr_scores.shape[1], device=dev) < num_passages)[None, :]
-                doc_scores = torch.where(
-                    valid, min_max_normalize(dpr_scores, where=valid), -torch.inf
-                )
-            order_dev, sorted_dev = rank_documents_topk(doc_scores, num_to_retrieve)
-            order = order_dev.cpu().numpy()
-            sorted_scores = sorted_dev.cpu().numpy()
+            # a named range in profiler traces (profile_log_dir): seeds, PPR,
+            # document top-k and the copy of the ranking to the host
+            with record_function("retrieve/graph_search"):
+                if num_facts > 0 and self.graph.num_edges > 0:
+                    doc_scores = graph_search_batch(
+                        self._index_state,
+                        torch.from_numpy(sel_scores).to(dev),
+                        torch.from_numpy(top_idx).to(dev),
+                        torch.from_numpy(top_mask).to(dev),
+                        dpr_scores,
+                        link_top_k=link_top_k,
+                        passage_node_weight=cfg.passage_node_weight,
+                        damping=cfg.damping,
+                        ppr_max_iters=cfg.ppr_max_iters,
+                        ppr_tol=cfg.ppr_tol,
+                        ppr_dtype=cfg.ppr_compute_dtype,
+                        ppr_edge_chunks=cfg.ppr_edge_chunks,
+                    )
+                else:
+                    valid = (torch.arange(dpr_scores.shape[1], device=dev) < num_passages)[None, :]
+                    doc_scores = torch.where(
+                        valid, min_max_normalize(dpr_scores, where=valid), -torch.inf
+                    )
+                order_dev, sorted_dev = rank_documents_topk(doc_scores, num_to_retrieve)
+                order = order_dev.cpu().numpy()
+                sorted_scores = sorted_dev.cpu().numpy()
             self.ppr_time += time.time() - ppr_start
 
             out = []

@@ -1,8 +1,8 @@
 """Batched graph retrieval (port of ``hipporag_tpu/models/retrieval.py``).
 
 The whole query batch advances together on [B, ...] tensors: seed
-construction, batched PPR over the bucketed-ELL operator, and the final
-[B, P] passage scores. Score semantics are the reference's:
+construction, batched PPR over the bucketed-ELL or the COO operator
+(dispatched on the graph's type), and the final [B, P] passage scores. Score semantics are the reference's:
 
 - each selected fact contributes ``fact_score / |chunks containing endpoint|``
   to both endpoint phrases; per-phrase weights average over contributions;
@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.pagerank import ELLGraph, batched_ppr_ell
+from ..ops.pagerank import COOGraph, ELLGraph, batched_ppr, batched_ppr_ell
 from ..ops.scoring import min_max_normalize, topk_lower_index
 
 
@@ -32,7 +32,7 @@ class RetrievalIndex(NamedTuple):
     refer to the padded graph. Invalid/padded entries carry node id N_pad-1.
     """
 
-    graph: ELLGraph
+    graph: ELLGraph | COOGraph
     fact_subj_node: torch.Tensor  # [F_pad] int32
     fact_obj_node: torch.Tensor  # [F_pad] int32
     node_chunk_counts: torch.Tensor  # [N_pad] float32 (>=0; divisor clamped to 1)
@@ -136,25 +136,31 @@ def graph_search_batch(
     ppr_max_iters: int = 64,
     ppr_tol: float = 1.0e-8,
     ppr_dtype: str = "float32",
+    ppr_edge_chunks: int = 1,
     return_iters: bool = False,
 ):
     """Return [B, P_pad] final document scores (padded cols = -inf).
 
-    With ``return_iters=True`` returns ``(scores, iters)``, ``iters`` being
-    the per-query PPR iteration counts.
+    ``ppr_edge_chunks`` streams the COO operator's edge list in that many
+    slices (the ELL operator ignores it). With ``return_iters=True``
+    returns ``(scores, iters)``, ``iters`` being the per-query PPR
+    iteration counts.
     """
-    if not isinstance(index.graph, ELLGraph):
-        raise NotImplementedError(
-            "graph_search_batch: only the ELL operator is ported (ppr_format='ell')"
-        )
     reset, dpr_norm, p_valid = seed_reset_batch(
         index, sel_scores, top_fact_idx, top_fact_mask, dpr_scores,
         link_top_k, passage_node_weight,
     )
-    ppr, iters = batched_ppr_ell(
-        index.graph, reset, damping=damping, max_iters=ppr_max_iters,
-        tol=ppr_tol, compute_dtype=ppr_dtype, return_iters=True,
-    )
+    if isinstance(index.graph, ELLGraph):
+        ppr, iters = batched_ppr_ell(
+            index.graph, reset, damping=damping, max_iters=ppr_max_iters,
+            tol=ppr_tol, compute_dtype=ppr_dtype, return_iters=True,
+        )
+    else:
+        ppr, iters = batched_ppr(
+            index.graph, reset, damping=damping, max_iters=ppr_max_iters,
+            tol=ppr_tol, compute_dtype=ppr_dtype, edge_chunks=ppr_edge_chunks,
+            return_iters=True,
+        )
     ppr_doc_scores = ppr[:, index.passage_node_ids.long()]  # [B, P_pad]
 
     # DPR fallback for queries whose fact set is empty after reranking
@@ -171,3 +177,41 @@ def rank_documents_topk(doc_scores: torch.Tensor, k: int):
     index. Padded columns carry -inf and surface as -inf values."""
     vals, idx = topk_lower_index(doc_scores, min(k, doc_scores.shape[1]))
     return idx, vals
+
+
+def rank_documents(doc_scores: torch.Tensor):
+    """Descending order of [B, P] scores -> (sorted_idx, sorted_scores); a
+    stable sort, so ties go to the lower index."""
+    vals, order = torch.sort(doc_scores, dim=1, descending=True, stable=True)
+    return order, vals
+
+
+def build_reset_batch(
+    sel_scores: torch.Tensor,  # [B, K]
+    top_fact_idx: torch.Tensor,  # [B, K]
+    top_fact_mask: torch.Tensor,  # [B, K]
+    dpr_norm: torch.Tensor,  # [B, P] already min-max normalized over real passages
+    fact_subj_node: torch.Tensor,  # [F_cap]
+    fact_obj_node: torch.Tensor,  # [F_cap]
+    node_chunk_counts: torch.Tensor,  # [N_cap]
+    passage_node_ids: torch.Tensor,  # [P] real (distinct) passage node ids
+    num_nodes: int,
+    n_total: int,
+    link_top_k: int = 5,
+    passage_node_weight: float = 0.05,
+) -> torch.Tensor:
+    """The seed half of ``graph_search_batch`` as a [B, n_total] reset
+    matrix: zero-padded (or cut) from N_cap to ``n_total`` columns, the
+    width of a node space laid out for several devices.
+    ``parallel/seeds.build_reset_vectors`` is its host twin."""
+    b = top_fact_idx.shape[0]
+    n_cap = node_chunk_counts.shape[0]
+    kept = _phrase_seed_weights(
+        sel_scores, top_fact_idx, top_fact_mask, fact_subj_node, fact_obj_node,
+        node_chunk_counts, int(num_nodes), link_top_k,
+    )
+    pids = passage_node_ids.long()[None, :].expand(b, -1)
+    reset = kept + torch.zeros_like(kept).scatter_(1, pids, dpr_norm * passage_node_weight)
+    if n_total > n_cap:
+        reset = torch.nn.functional.pad(reset, (0, n_total - n_cap))
+    return reset[:, :n_total]

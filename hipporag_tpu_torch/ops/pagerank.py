@@ -1,9 +1,17 @@
-"""Batched Personalized PageRank over the bucketed-ELL operator (PyTorch port).
+"""Batched Personalized PageRank (PyTorch port of ``hipporag_tpu/ops/pagerank.py``).
 
-Port of ``hipporag_tpu/ops/pagerank.py``: the host-side packing into the
-slot-space bucketed-ELL layout (NumPy, array for array the layout the JAX
-package builds) and the power-iteration solver ``batched_ppr_ell`` as torch
-ops. Semantics are those of ``igraph.personalized_pagerank`` on a weighted
+Two operators, as in the JAX package:
+
+- **COO** (``batched_ppr``): gather + segment sum over the dst-sorted edge
+  list, ``y[dst] += w_norm * p[src]``, with the batch as the trailing axis.
+  The segment sum runs over dst row pointers (``torch.segment_reduce``),
+  one fixed order per segment, so the result does not depend on how a
+  device schedules the adds.
+- **Bucketed ELL** (``batched_ppr_ell``): the host-side packing into the
+  slot-space layout (NumPy, array for array the layout the JAX package
+  builds) and the power or Chebyshev iteration as torch ops.
+
+Semantics are those of ``igraph.personalized_pagerank`` on a weighted
 undirected graph:
 
 - a random step from ``u`` moves to neighbour ``v`` with probability
@@ -13,7 +21,7 @@ undirected graph:
 
 Fixed point: ``p = (1-d) r + d (T p + (dangling . p) r)``.
 
-The iteration is eager torch: each step's residual test reads one scalar
+The iterations are eager torch: each step's residual test reads one scalar
 back to the host, which is where the per-column-tile early exit and the
 two-in-a-row stall exit (``_stalled2``) are decided, in float32 exactly as
 the JAX ``while_loop`` decides them.
@@ -28,7 +36,8 @@ import torch
 
 
 class COOGraph(NamedTuple):
-    """Normalized transition operator in COO form (host NumPy arrays).
+    """Normalized transition operator in COO form: host NumPy arrays as
+    ``graph/csr.compile_device_graph`` builds it, tensors after ``.to(device)``.
 
     Attributes:
       src: [E] int32 source node per directed edge (padded with 0).
@@ -43,6 +52,10 @@ class COOGraph(NamedTuple):
     w_norm: np.ndarray
     dangling: np.ndarray
     num_nodes: np.ndarray
+
+    def to(self, device) -> "COOGraph":
+        """The same operator as tensors on ``device``."""
+        return COOGraph(*(torch.as_tensor(f).to(device) for f in self))
 
 
 def normalize_symmetric_coo(src, dst, w, num_nodes: int, node_cap: int):
@@ -525,24 +538,19 @@ def batched_ppr_ell(
     The iteration runs in slot space: reset is permuted in once, the result
     permuted out once. Zero-in-degree nodes are carried by the scalar
     coefficient c: p_k[v] = c_k·r[v] with c_{k+1} = (1-d) + d·c_k·R_d
-    (R_d = reset mass on dangling nodes). Only ``accel="power"`` is ported.
-    """
-    if accel != "power":
-        raise NotImplementedError(f"accel={accel!r}: only 'power' is ported")
-    if compute_dtype not in (None, "float32", "bfloat16"):
-        raise ValueError(f"unsupported PPR compute_dtype {compute_dtype!r}")
-    gather_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else None
-    dev = reset.device
+    (R_d = reset mass on dangling nodes).
 
-    reset = torch.clamp_min(reset, 0.0)
-    reset = torch.where(torch.isnan(reset), torch.zeros_like(reset), reset)
-    row_sum = reset.sum(dim=1, keepdim=True)
-    num_nodes = graph.num_nodes.to(dev)
-    n_real = torch.clamp_min(num_nodes, 1).to(reset.dtype)
-    node_ids = torch.arange(reset.shape[1], device=dev)[None, :]
-    uniform = torch.where(node_ids < num_nodes, 1.0 / n_real, 0.0)
-    safe_sum = torch.where(row_sum > 0, row_sum, torch.ones_like(row_sum))
-    r = torch.where(row_sum > 0, reset / safe_sum, uniform)
+    ``accel="chebyshev"`` runs the Chebyshev semi-iteration for the same
+    fixed point (the spectral radius of d·T is at most d): ω₁ = 1/(1 − d²/2),
+    then ω ← 1/(1 − d²/4 · ω). Its residual is not monotone, so it has no
+    stall exit and runs to ``tol`` or ``max_iters``; the residual is taken
+    over both the slot states and c.
+    """
+    if accel not in ("power", "chebyshev"):
+        raise ValueError(f"unknown PPR accel {accel!r}")
+    gather_dtype = _gather_dtype(compute_dtype)
+    dev = reset.device
+    r = _normalized_reset(reset, graph.num_nodes.to(dev))
 
     r_T = r.T.contiguous()  # [N, B] natural order
     d = torch.tensor(damping, dtype=torch.float32, device=dev)
@@ -565,23 +573,40 @@ def batched_ppr_ell(
             c_next = one_minus_d + d * dm
             return p_next, c_next
 
-        p_slot = r_slot
-        c = torch.ones_like(rdm)
-        inf = np.float32(np.inf)
-        err_prev2 = err_prev = err = inf
-        it = 0
-        while (
-            err > np.float32(tol)
-            and it < max_iters
-            and not _stalled2(err, err_prev, err_prev2, tol, damping)
-        ):
-            p_next, c_next = step(p_slot, c)
-            err_next = torch.maximum(
-                (p_next - p_slot).abs().amax(), (c_next - c).abs().amax()
-            )
-            p_slot, c = p_next, c_next
-            err_prev2, err_prev, err = err_prev, err, np.float32(err_next.item())
-            it += 1
+        def residual(x_next, x, c_next, c):
+            err = torch.maximum((x_next - x).abs().amax(), (c_next - c).abs().amax())
+            return np.float32(err.item())
+
+        one = torch.ones_like(rdm)
+        if accel == "chebyshev":
+            rho2 = d * d
+            x_prev, c_prev = r_slot, one
+            p_slot, c = step(x_prev, c_prev)
+            omega = 1.0 / (1.0 - rho2 / 2.0)
+            err, it = np.float32(np.inf), 1
+            while err > np.float32(tol) and it < max_iters:
+                sx, sc = step(p_slot, c)
+                x_next = omega * (sx - x_prev) + x_prev
+                c_next = omega * (sc - c_prev) + c_prev
+                err = residual(x_next, p_slot, c_next, c)
+                omega = 1.0 / (1.0 - rho2 / 4.0 * omega)
+                x_prev, c_prev, p_slot, c = p_slot, c, x_next, c_next
+                it += 1
+        else:
+            p_slot, c = r_slot, one
+            inf = np.float32(np.inf)
+            err_prev2 = err_prev = err = inf
+            it = 0
+            while (
+                err > np.float32(tol)
+                and it < max_iters
+                and not _stalled2(err, err_prev, err_prev2, tol, damping)
+            ):
+                p_next, c_next = step(p_slot, c)
+                err_next = residual(p_next, p_slot, c_next, c)
+                p_slot, c = p_next, c_next
+                err_prev2, err_prev, err = err_prev, err, err_next
+                it += 1
         it_row = torch.full((1, r_slot.shape[1]), it, dtype=torch.int32, device=dev)
         return p_slot, c, it_row
 
@@ -595,3 +620,237 @@ def batched_ppr_ell(
     if return_iters:
         return p_T.T, it_row[0]
     return p_T.T
+
+
+def _gather_dtype(compute_dtype):
+    if compute_dtype not in (None, "float32", "bfloat16"):
+        raise ValueError(f"unsupported PPR compute_dtype {compute_dtype!r}")
+    return torch.bfloat16 if compute_dtype == "bfloat16" else None
+
+
+def _normalized_reset(reset: torch.Tensor, num_nodes: torch.Tensor) -> torch.Tensor:
+    """Negatives and NaNs to 0, rows L1-normalized; an all-zero row becomes
+    uniform over the real nodes (igraph's reset when none is given)."""
+    reset = torch.clamp_min(reset, 0.0)
+    reset = torch.where(torch.isnan(reset), torch.zeros_like(reset), reset)
+    row_sum = reset.sum(dim=1, keepdim=True)
+    n_real = torch.clamp_min(num_nodes, 1).to(reset.dtype)
+    node_ids = torch.arange(reset.shape[1], device=reset.device)[None, :]
+    uniform = torch.where(node_ids < num_nodes, 1.0 / n_real, 0.0)
+    safe_sum = torch.where(row_sum > 0, row_sum, torch.ones_like(row_sum))
+    return torch.where(row_sum > 0, reset / safe_sum, uniform)
+
+
+# ======================================================================
+# COO solver
+# ======================================================================
+def _edge_chunks(graph: COOGraph, n: int, edge_chunks: int = 1):
+    """Contiguous slices of the dst-sorted edge list, each as (src, w_norm,
+    segment lengths [n]). Past one chunk the list is padded to whole
+    chunks with weight-0 edges from node 0 to the last node, which keeps
+    every chunk dst-sorted. The lengths come from dst row pointers."""
+    src, dst, w = graph.src, graph.dst, graph.w_norm
+    chunks = max(1, edge_chunks)
+    if chunks > 1:
+        e = src.shape[0]
+        pad = -(-e // chunks) * chunks - e
+        src = torch.nn.functional.pad(src, (0, pad))
+        dst = torch.nn.functional.pad(dst, (0, pad), value=n - 1)
+        w = torch.nn.functional.pad(w, (0, pad))
+    bounds = torch.arange(n + 1, dtype=dst.dtype, device=dst.device)
+    out = []
+    for s, d, wc in zip(src.chunk(chunks), dst.chunk(chunks), w.chunk(chunks)):
+        out.append((s, wc, torch.diff(torch.searchsorted(d, bounds))))
+    return out
+
+
+def _spmv_T(graph: COOGraph, p_T: torch.Tensor, gather_dtype=None, edge_chunks: int = 1,
+            chunks=None) -> torch.Tensor:
+    """y_T[N, B] = T @ p for all batch columns: y[dst] += w_norm * p[src].
+
+    Products are formed in the gather dtype (bfloat16 halves the [E, B]
+    gather) and summed in float32. ``edge_chunks > 1`` streams contiguous
+    slices of the edge list, so only one [E/chunks, B] gathered block
+    exists at once; the chunks' sums add in order. ``chunks`` is
+    ``_edge_chunks``'s result, computed once per solve.
+    """
+    n = p_T.shape[0]
+    p_g = p_T.to(gather_dtype) if gather_dtype is not None else p_T
+    y = None
+    for src, w, lengths in chunks if chunks is not None else _edge_chunks(graph, n, edge_chunks):
+        g = p_g.index_select(0, src)
+        g.mul_(w[:, None].to(p_g.dtype))
+        part = torch.segment_reduce(g.float(), "sum", lengths=lengths, axis=0)
+        y = part if y is None else y + part
+    return y
+
+
+def batched_ppr(
+    graph: COOGraph,
+    reset: torch.Tensor,
+    damping: float = 0.5,
+    max_iters: int = 64,
+    tol: float = 1.0e-8,
+    compute_dtype: str | None = None,
+    edge_chunks: int = 1,
+    return_iters: bool = False,
+):
+    """Run PPR for a batch of reset vectors [B, N] over the COO operator.
+
+    ``graph`` holds tensors on the reset's device (``COOGraph.to``). Returns
+    [B, N] stationary probabilities (rows sum to ~1 over real nodes), or
+    ``(p, iters)`` with ``return_iters=True``, as ``batched_ppr_ell`` does.
+    The COO operator may be directed: the dangling mass is summed over the
+    state each iteration. Columns are solved in 128-wide tiles, each with
+    its own early exit and stall exit.
+    """
+    gather_dtype = _gather_dtype(compute_dtype)
+    dev = reset.device
+    r_T = _normalized_reset(reset, graph.num_nodes.to(dev)).T.contiguous()  # [N, B]
+    d = torch.tensor(damping, dtype=torch.float32, device=dev)
+    one_minus_d = 1.0 - d
+    chunks = _edge_chunks(graph, r_T.shape[0], edge_chunks)
+    dangling = graph.dangling[:, None]
+
+    def _solve(r_T, _unused):
+        """While-loop solve for one [N, b<=tile] column block (the second
+        argument only fits tile_columns' signature)."""
+        p_T = r_T
+        inf = np.float32(np.inf)
+        err_prev2 = err_prev = err = inf
+        it = 0
+        while (
+            err > np.float32(tol)
+            and it < max_iters
+            and not _stalled2(err, err_prev, err_prev2, tol, damping)
+        ):
+            y_T = _spmv_T(graph, p_T, gather_dtype, chunks=chunks)
+            dangling_mass = (p_T * dangling).sum(0, keepdim=True)
+            p_next = one_minus_d * r_T + d * (y_T + dangling_mass * r_T)
+            err_next = np.float32((p_next - p_T).abs().amax().item())
+            p_T = p_next
+            err_prev2, err_prev, err = err_prev, err, err_next
+            it += 1
+        return p_T, torch.full((1, r_T.shape[1]), it, dtype=torch.int32, device=dev)
+
+    p_T, it_row = tile_columns(_solve, r_T, r_T.new_zeros(1, r_T.shape[1]))
+    if return_iters:
+        return p_T.T, it_row[0]
+    return p_T.T
+
+
+def ppr_numpy_reference(
+    num_nodes: int,
+    edges,  # iterable of (u, v, w) undirected entries, already symmetric-expanded
+    reset,  # [B, N]
+    damping: float = 0.5,
+    iters: int = 200,
+):
+    """Trusted dense NumPy implementation for parity tests (host-side).
+
+    Builds the dense symmetric adjacency, normalizes rows, and iterates the
+    same fixed point; the semantics are those of igraph/prpack for weighted
+    undirected graphs.
+    """
+    A = np.zeros((num_nodes, num_nodes), dtype=np.float64)
+    for u, v, w in edges:
+        A[u, v] += w
+    strength = A.sum(axis=1)
+    dangling = (strength == 0).astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        T = np.where(strength[:, None] > 0, A / np.maximum(strength, 1e-300)[:, None], 0.0)
+
+    reset = np.asarray(reset, dtype=np.float64)
+    reset = np.where(np.isnan(reset) | (reset < 0), 0.0, reset)
+    rs = reset.sum(axis=1, keepdims=True)
+    r = np.where(rs > 0, reset / np.where(rs > 0, rs, 1.0), 1.0 / num_nodes)
+
+    p = r.copy()
+    for _ in range(iters):
+        y = p @ T  # y[b, v] = sum_u p[b, u] T[u, v]
+        dm = (p * dangling).sum(axis=1, keepdims=True)
+        p = (1 - damping) * r + damping * (y + dm * r)
+    return p
+
+
+# ======================================================================
+# Capacity planning
+# ======================================================================
+def _ell_parts(graph: ELLGraph):
+    """(idx, wgt) of every reduce of one SpMV: the buckets, then the hub rows."""
+    parts = list(zip(graph.bucket_idx, graph.bucket_wgt))
+    if graph.hub_idx.shape[0]:
+        parts.append((graph.hub_idx, graph.hub_wgt))
+    return parts
+
+
+def _plan_temp_bytes(nb: int, w: int, b: int, itemsize: int) -> int:
+    """Bytes of the largest gathered block ``_bucket_reduce`` forms."""
+    path, param = _bucket_plan(nb, w, b, itemsize)
+    if path == "oneshot":
+        return nb * w * b * itemsize
+    if path == "width":
+        return nb * param * b * itemsize
+    return param * w * b * itemsize
+
+
+def ell_hbm_estimate(graph: ELLGraph, batch: int, itemsize: int = 4) -> dict:
+    """Device-memory model of a ``batched_ppr_ell`` solve over the port's
+    buffers (what batch fits this card?). Byte counts:
+
+    - ``operator_bytes``: every tensor of the ELLGraph (``tensor.nbytes``
+      summed), int32 slot ids, float32 weights.
+    - ``hub_rows_bytes``: the int64 [n_hub_cap, max chunks] row map that
+      ``_hub_rows`` builds once per solve.
+    - ``state_bytes``: live [S, b] float32 loop buffers per column tile:
+      the state, its successor, the SpMV output, the slot reset, and one
+      for the temporaries around the concatenation (5x).
+    - ``gather_temp_bytes``: the largest gathered block of one reduce under
+      ``_bucket_plan`` (``itemsize`` 2 for bfloat16 gathers), or the
+      [n_hub_cap, max chunks, b] float32 gather of the hub partial sums.
+    - ``io_bytes``: the natural-order reset and result ([B, N_pad] each).
+
+    An estimate, to set beside ``torch.cuda.max_memory_allocated``.
+    """
+    f32 = 4
+    tensors = [*graph.bucket_idx, *graph.bucket_wgt] + [
+        getattr(graph, f) for f in ELLGraph._fields if f not in ("bucket_idx", "bucket_wgt")
+    ]
+    op_bytes = sum(t.nbytes for t in tensors)
+    hub_rows = _hub_rows(graph)
+    n_slots = int(graph.slot_to_node.shape[0])
+    b_tile = min(batch, _PPR_BATCH_TILE)
+    states = 5 * n_slots * b_tile * f32
+    temp = max(
+        [_plan_temp_bytes(int(i.shape[0]), int(i.shape[1]), b_tile, itemsize) for i, _ in _ell_parts(graph)]
+        + [hub_rows.numel() * b_tile * f32]
+    )
+    io = 2 * batch * int(graph.local_inv.shape[0]) * f32
+    total = op_bytes + hub_rows.nbytes + states + temp + io
+    return {
+        "operator_bytes": op_bytes,
+        "hub_rows_bytes": hub_rows.nbytes,
+        "state_bytes": states,
+        "gather_temp_bytes": temp,
+        "io_bytes": io,
+        "total_bytes": total,
+        "total_gib": round(total / 2**30, 2),
+    }
+
+
+def bucket_reduce_plan(graph: ELLGraph, batch: int, itemsize: int = 4):
+    """Which reduce path each bucket (and the hub rows) takes at this batch
+    size: "oneshot", "width xk" or "rowchunk xk", from the same
+    ``_bucket_plan`` the solver runs. Pass the per-tile batch,
+    ``min(batch, 128)``, and ``itemsize=2`` for bfloat16 gathers."""
+    plan = []
+    for idx, _ in _ell_parts(graph):
+        nb, w = int(idx.shape[0]), int(idx.shape[1])
+        path, param = _bucket_plan(nb, w, batch, itemsize)
+        if path == "oneshot":
+            plan.append(f"[{nb}x{w}] oneshot")
+        elif path == "width":
+            plan.append(f"[{nb}x{w}] width x{-(-w // param)}")
+        else:
+            plan.append(f"[{nb}x{w}] rowchunk x{-(-nb // param)}")
+    return plan

@@ -1,24 +1,20 @@
 """ctypes binding for the native HTTP front-end (``http_frontend.cpp``).
 
 Builds the shared library on first use with ``make`` (the ``Makefile`` in
-this directory) and returns ``None`` if that fails, so callers can fall
-back to the stdlib front-end. The library goes to ``build/http_frontend/``
-at the repository root (an installed package: the user's cache), never
-into the source tree; its file name carries a hash of the source and the
-Makefile, so an edited source builds a new one. Each builder writes its own
-temporary file and renames it into place, so concurrent builders never
-load a partly written library.
+this directory) into ``build/http_frontend/``, named by a hash of its
+sources (``utils/native_build``), and returns ``None`` if that fails, so
+callers can fall back to the stdlib front-end.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import subprocess
 import threading
 from typing import Optional
 
+from ...utils import native_build
 from ...utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -30,35 +26,13 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build_dir() -> str:
-    root = os.path.dirname(os.path.dirname(os.path.dirname(_THIS_DIR)))
-    if os.path.exists(os.path.join(root, "pyproject.toml")):  # a checkout
-        return os.path.join(root, "build", "http_frontend")
-    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
-    return os.path.join(cache, "hipporag_tpu_torch", "http_frontend")
-
-
 def library_path() -> str:
     """Where the library lives, keyed by a hash of its sources."""
-    digest = hashlib.sha256()
-    for name in _SOURCES:
-        with open(os.path.join(_THIS_DIR, name), "rb") as fh:
-            digest.update(name.encode() + b"\0" + fh.read())
-    return os.path.join(_build_dir(), f"libhttp_frontend-{digest.hexdigest()[:16]}.so")
+    return native_build.library_path(_THIS_DIR, _SOURCES, "http_frontend")
 
 
 def _build(out: str) -> None:
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    try:
-        subprocess.run(
-            ["make", "-s", f"OUT={tmp}", tmp],
-            cwd=_THIS_DIR, check=True, capture_output=True, timeout=120,
-        )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    native_build.make_library(_THIS_DIR, out)
 
 
 def load() -> Optional[ctypes.CDLL]:

@@ -48,9 +48,6 @@ from hipporag_tpu_torch.models.retrieval import seed_reset_batch  # noqa: E402
 from hipporag_tpu_torch.ops.pagerank import batched_ppr_ell  # noqa: E402
 from hipporag_tpu_torch.ops.scoring import batched_scores, fact_topk  # noqa: E402
 
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
 def stage_times(bucket) -> dict:
     """CUDA-event ms of the bucket and its stages, each the mean of 5 calls."""
     sizes, index = bucket["sizes"], bucket["index"]
@@ -68,21 +65,6 @@ def stage_times(bucket) -> dict:
     return out
 
 
-def merged_busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
-
-
 def device_profile(fn, trace_path: str, top: int, label: str = "bucket") -> dict:
     """One call of ``fn`` under torch.profiler, read back from its chrome trace."""
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -97,7 +79,7 @@ def device_profile(fn, trace_path: str, top: int, label: str = "bucket") -> dict
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as fh:
         events = json.load(fh)["traceEvents"]
-    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in cs.DEVICE_CATS]
     host = [e for e in events if e.get("ph") == "X" and e.get("name") == label]
     out = {"trace": trace_path, "device_activities": len(dev),
            "host_span_ms": host[0]["dur"] / 1e3 if host else None}
@@ -106,7 +88,7 @@ def device_profile(fn, trace_path: str, top: int, label: str = "bucket") -> dict
         out.update(device_busy_ms=None, device_span_ms=None, idle_share=None, by_kernel=[])
         return out
     intervals = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev]
-    busy = merged_busy_us(intervals)
+    busy = cs.merged_busy_us(intervals)
     span = max(e for _, e in intervals) - min(s for s, _ in intervals)
     by_name = defaultdict(lambda: [0.0, 0])
     for e in dev:

@@ -8,8 +8,9 @@ which ``chip_smoke.py`` holds the port to on the GPU; a test here
 regenerates it so it cannot go stale. A subprocess with jax,
 ``hipporag_tpu``, pandas, pyarrow, httpx and filelock blocked shows the
 port runs without them, with the mock embedder and with the port's encoder:
-index, retrieve, delete, and one served ``/retrieve``. Each package gets its
-own ``BaseConfig``.
+index, retrieve (ELL and COO), one adapter step, the multihop harness,
+delete, and one served ``/retrieve``. Each package gets its own
+``BaseConfig``.
 """
 
 import json
@@ -115,8 +116,9 @@ def test_bfloat16_fused_route_matches_fixture(tmp_path, monkeypatch):
 
 def test_port_runs_without_jax_pandas_pyarrow_httpx_filelock(tmp_path):
     """The mock embedder, and the port's encoder (``jax/random-64x2``)
-    through ``HippoRAG.retrieve``, ``retrieve_dpr`` and ``StandardRAG``;
-    then ``delete`` and one ``/retrieve`` served by the stdlib front end."""
+    through ``HippoRAG.retrieve``, ``retrieve_dpr`` and ``StandardRAG``; a
+    COO retrieve, one adapter step and ``run_multihop_eval``; then
+    ``delete`` and one ``/retrieve`` served by the stdlib front end."""
     code = f"""
 import sys
 for m in {BLOCKED!r}:
@@ -139,6 +141,19 @@ for name in ("mock", "jax/random-64x2"):
         std = hipporag_tpu_torch.StandardRAG(cfg, device="cpu")
         std.index(docs)
         assert all(s.docs for s in std.retrieve(queries))
+coo = hipporag_tpu_torch.HippoRAG(hipporag_tpu_torch.BaseConfig(
+    llm_name="mock", embedding_model_name="mock", vector_store_type="memory", ppr_format="coo",
+    save_dir={str(tmp_path)!r} + "/coo"), device="cpu")
+coo.index(docs)
+assert all(s.docs for s in coo.retrieve(queries))
+assert type(coo._index_state.graph).__name__ == "COOGraph"
+from hipporag_tpu_torch.models.adapter import adamw, init_adapter, make_train_step
+params = init_adapter(16, 32, generator=torch.Generator().manual_seed(0), device="cpu")
+loss = make_train_step(adamw(params, 1e-2))(params, torch.randn(8, 16), torch.randn(8, 16))
+assert bool(torch.isfinite(loss))
+from hipporag_tpu_torch.evaluation.multihop import run_multihop_eval
+multihop = run_multihop_eval(device="cpu")
+assert "multihop3_error" not in multihop and len(multihop) == 4, multihop
 rag.delete(docs[:2])
 import json, threading, urllib.request
 from hipporag_tpu_torch.serving import RetrievalService
@@ -166,9 +181,9 @@ print("OK", len(sols))
 
 
 def _jax_package_imports(path):
-    """Every import of ``hipporag_tpu`` or ``hipporag_tpu.*`` in a file, at
-    any depth (lazy imports in functions too), and every ``import_module``
-    or ``__import__`` call naming it."""
+    """Every import of ``hipporag_tpu``, ``jax`` or ``jaxlib`` (or a
+    submodule) in a file, at any depth (lazy imports in functions too), and
+    every ``import_module`` or ``__import__`` call naming one."""
     import ast
 
     with open(path, encoding="utf-8") as fh:
@@ -176,7 +191,7 @@ def _jax_package_imports(path):
     found = []
 
     def names_jax_package(name):
-        return name == "hipporag_tpu" or name.startswith("hipporag_tpu.")
+        return any(name == top or name.startswith(top + ".") for top in ("hipporag_tpu", "jax", "jaxlib"))
 
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -193,26 +208,28 @@ def _jax_package_imports(path):
 
 
 def test_port_imports_nothing_of_the_jax_package(tmp_path):
-    """No file of the port, nor ``chip_smoke.py`` or
-    ``scripts/profile_torch_bucket.py``, imports ``hipporag_tpu``."""
+    """No file of the port (the native graph core's loader included), nor
+    ``chip_smoke.py`` or ``scripts/profile_torch_bucket.py``, imports
+    ``hipporag_tpu``, ``jax`` or ``jaxlib``."""
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "profile_torch_bucket.py")]
     for dirpath, _dirs, names in os.walk(os.path.join(ROOT, "hipporag_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
-    assert len(files) > 60
+    assert len(files) > 70
+    assert os.path.join(ROOT, "hipporag_tpu_torch", "graph", "native", "__init__.py") in files
     offenders = {os.path.relpath(f, ROOT): found for f in files if (found := _jax_package_imports(f))}
     assert not offenders, offenders
     # the check itself sees direct, lazy and dynamic imports
     probe = tmp_path / "import_probe.py"
     probe.write_text("import hipporag_tpu.config\ndef f():\n    from hipporag_tpu import x\n"
-                     "    importlib.import_module('hipporag_tpu.llm')\nfrom hipporag_tpu_torch import y\n")
-    assert sorted(_jax_package_imports(str(probe))) == ["hipporag_tpu", "hipporag_tpu.config", "hipporag_tpu.llm"]
+                     "    importlib.import_module('hipporag_tpu.llm')\nfrom hipporag_tpu_torch import y\n"
+                     "import jax.numpy as jnp\nfrom jaxlib import xla_client\nimport jaxtyping\n")
+    assert sorted(_jax_package_imports(str(probe))) == [
+        "hipporag_tpu", "hipporag_tpu.config", "hipporag_tpu.llm", "jax.numpy", "jaxlib"]
 
 
-@pytest.mark.parametrize(
-    "override",
-    [{"mesh_shape": (1, 2)}, {"ppr_format": "coo"}, {"profile_log_dir": "trace"}],
-)
+@pytest.mark.parametrize("override", [{"mesh_shape": (1, 2)}])
 def test_unported_config_raises(tmp_path, override):
+    """Only the multi-device configuration is refused."""
     cfg = _config(tmp_path)
     for key, value in override.items():
         setattr(cfg, key, value)

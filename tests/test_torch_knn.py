@@ -3,8 +3,15 @@
 Pair sets (row, col) must be equal and scores agree to 1e-6, on
 L2-normalized vectors with planted near-duplicates (so some pairs clear
 the threshold) and on hashing-embedder entity vectors.
+
+``retrieve_knn`` keeps the reference's interface (``tests/test_ops.py``'s
+twin): ``{query_id: ([key ids best-first], [scores])}``. On the same
+numpy-seeded unit vectors, ``retrieve_knn_arrays`` and
+``streaming_topk_scores`` return the JAX package's indices exactly and
+its scores to 1e-6, with padded key rows masked and ties to the lower key.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -72,3 +79,57 @@ def test_streaming_topk_ties_keep_the_lower_key():
     vals, idx = knn._streaming_topk(torch.from_numpy(q), torch.from_numpy(keys), 20, 5, key_chunk=6)
     np.testing.assert_array_equal(idx.numpy(), np.tile(np.arange(5), (2, 1)))
     np.testing.assert_array_equal(vals.numpy(), 8.0)
+
+
+def _vecs(n, d, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def test_retrieve_knn_interface():
+    vecs = _vecs(20, 8, 3)
+    ids = [f"e{i}" for i in range(20)]
+    out = knn.retrieve_knn(ids, ids, vecs, vecs, k=4, query_batch_size=6, key_batch_size=7, device="cpu")
+    assert set(out.keys()) == set(ids)
+    for qid, (nbrs, scores) in out.items():
+        assert len(nbrs) == 4
+        assert nbrs[0] == qid  # self-similarity = 1.0 is always the top hit
+        assert scores == sorted(scores, reverse=True)
+    want = ref.retrieve_knn(ids, ids, vecs, vecs, k=4, query_batch_size=6, key_batch_size=7)
+    for qid in ids:
+        assert out[qid][0] == want[qid][0]
+        np.testing.assert_allclose(out[qid][1], want[qid][1], atol=1e-6)
+    assert knn.retrieve_knn(["q"], [], vecs[:1], vecs[:0], device="cpu") == {"q": ([], [])}
+
+
+def test_retrieve_knn_arrays_matches_jax_with_ties():
+    keys = _vecs(300, 16, 4)
+    keys[150] = keys[20]  # an exact tie: the lower key comes first
+    queries = np.concatenate([_vecs(37, 16, 5), keys[20:21]])
+    vals, idxs = knn.retrieve_knn_arrays(queries, keys, 290, 9, query_batch_size=16,
+                                          key_batch_size=64, device="cpu")
+    want_vals, want_idxs = ref.retrieve_knn_arrays(queries, keys, 290, 9, query_batch_size=16,
+                                                   key_batch_size=64)
+    np.testing.assert_array_equal(idxs, want_idxs)
+    np.testing.assert_allclose(vals, want_vals, atol=1e-6)
+    assert (idxs < 290).all() and list(idxs[-1, :2]) == [20, 150]
+
+
+def test_streaming_topk_scores_matches_jax():
+    keys = np.concatenate([_vecs(100, 12, 6), np.zeros((28, 12), np.float32)])  # padded rows
+    queries = _vecs(5, 12, 7)
+    vals, idxs = knn.streaming_topk_scores(torch.from_numpy(queries), torch.from_numpy(keys), 100, 7,
+                                            key_chunk=32)
+    want_vals, want_idxs = ref.streaming_topk_scores(jnp.asarray(queries), jnp.asarray(keys),
+                                                     jnp.asarray(100, jnp.int32), 7, key_chunk=32)
+    np.testing.assert_array_equal(idxs.numpy(), np.asarray(want_idxs))
+    np.testing.assert_allclose(vals.numpy(), np.asarray(want_vals), atol=1e-6)
+
+
+def test_ops_exports_match_jax():
+    import hipporag_tpu.ops as ref_ops
+    import hipporag_tpu_torch.ops as port_ops
+
+    assert sorted(port_ops.__all__) == sorted(ref_ops.__all__)
+    assert all(callable(getattr(port_ops, name)) for name in port_ops.__all__)
