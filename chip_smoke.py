@@ -6,7 +6,7 @@
 from the repository root, on a machine with a CUDA GPU, nvcc and PyTorch
 built for CUDA (no JAX needed). It builds the hand-written CUDA kernel from
 ``hipporag_tpu_torch/csrc`` and the native graph core from
-``hipporag_tpu_torch/graph/native`` and runs seven phases; any failure ends
+``hipporag_tpu_torch/graph/native`` and runs eight phases; any failure ends
 the run with a non-zero exit:
 
 1. Kernel vs plain: ``fused_score_topk`` (CUDA pass A) against
@@ -27,7 +27,8 @@ the run with a non-zero exit:
    ``.rag_qa()`` on the sample corpus with the mock LLM and embedder, held
    against ``tests/fixtures/torch_port_sample_expected.json`` (recorded
    from the JAX package on the CPU), with ``compute_dtype`` float32 and
-   bfloat16 (bf16 keys through the kernel).
+   bfloat16 (bf16 keys through the kernel); then ``retrieve`` again under a
+   caller's ``torch.set_float32_matmul_precision("high")``, bit-identical.
 4. The on-device encoder at BERT-base width (``jax/random-768x12``:
    hidden 768, 12 layers, 12 heads, FFN 3072): (a) the embeddings of 16
    texts spanning the buckets 16-512, in bf16 and f32 compute, held to
@@ -73,6 +74,22 @@ the run with a non-zero exit:
    NV-Embed-v2's width, the first 5 losses equal to the same steps on the
    CPU; (g) ``run_multihop_eval`` on the card against
    ``tests/fixtures/torch_port_multihop_expected.json``.
+8. The multi-device path on virtual shards of the one card (a mesh whose
+   four devices are all this GPU: it checks correctness and per-shard work,
+   not scaling): (a) ``make_sharded_score_topk`` at phase 2's shape on
+   meshes (1, 4) and (2, 2), held to the single-device plain ``fact_topk``;
+   (b) ``make_sharded_ppr_ell`` on phase 2's graph and resets at (1, 4) and
+   (2, 2), held to ``batched_ppr_ell`` per dp group and to float64 scipy,
+   with iterations, ms per iteration and the work counters; (c)
+   ``make_sharded_ppr`` (COO) at (1, 4), held to the single-device COO
+   solve, a rerun bit-identical; (d) phase 6's live index re-prepared with
+   ``mesh_shape=(1, 4)``: 256 parity queries rank as the single-device
+   ``retrieve`` (near ties may trade), then 256 ``/retrieve`` through the
+   native front end; (e) the dp+tp adapter step at phase 7f's width on
+   (2, 2), its first 5 losses equal to phase 7f's; (f) the 768x12 encoder
+   with ``mesh_shape=(1, 4)`` equal to the unsharded encoder and the
+   fixture; (g) ``parallel.dryrun`` at 4 shards (the 1,048,576-node halo
+   solve, the memory model, the 16 MiB-budget reduce, the capacity table).
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Neither JAX nor ``hipporag_tpu`` may be
@@ -118,7 +135,24 @@ from hipporag_tpu_torch.ops.pagerank import (  # noqa: E402
     ell_gathered_rows_per_iter,
     normalize_symmetric_coo,
 )
-from hipporag_tpu_torch.ops.scoring import batched_scores, fact_topk, score_and_topk  # noqa: E402
+from hipporag_tpu_torch.ops.scoring import (  # noqa: E402
+    batched_normalized_scores,
+    batched_scores,
+    fact_topk,
+    score_and_topk,
+)
+from hipporag_tpu_torch.parallel import (  # noqa: E402
+    corpus_sharded,
+    make_mesh,
+    make_sharded_ppr,
+    make_sharded_ppr_ell,
+    make_sharded_score_topk,
+    put_sharded_ell,
+    put_sharded_graph,
+    shard_graph,
+    shard_graph_ell,
+    sharded_ell_counters,
+)
 
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_sample_expected.json")
 ENCODER_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_encoder_768x12.npz")
@@ -196,6 +230,13 @@ PROFILE_DIR = os.path.join(ROOT, "build", "profile", "served")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the adapter at NV-Embed-v2's width (the reference's default embedder)
 ADAPTER = dict(dim=4096, hidden=1024, pairs=1024, steps=100, cpu_steps=5, lr=1e-3)
+# phase 8: virtual shards of the one card; the bounds of tests/test_parallel.py
+SHARDS = 4
+SHARD_MESHES = ((1, SHARDS), (2, SHARDS // 2))
+SHARDED_SCORE_ATOL = 1e-5
+SHARDED_ELL_RTOL, SHARDED_ELL_ATOL = 1e-5, 1e-7
+SHARDED_COO_ATOL = 2e-6
+SHARDED_ADAPTER_STEPS, SHARDED_ADAPTER_RTOL = 5, 1e-4
 
 
 def scan_delta(q, keys):
@@ -602,6 +643,15 @@ def phase3(device, compute_dtype="float32"):
         wall = time.perf_counter() - t0
         launches = fused_topk.SCAN_LAUNCHES.count
         check(launches > 0, f"phase 3 ({compute_dtype}): retrieve did not launch the fused kernel")
+        # a caller's TF32 setting must not reach the port's products
+        torch.set_float32_matmul_precision("high")
+        try:
+            again = rag.retrieve(queries)
+            check(torch.get_float32_matmul_precision() == "high", "phase 3: retrieve did not restore the caller's flags")
+        finally:
+            torch.set_float32_matmul_precision("highest")
+        check(all(a.docs == s.docs and np.array_equal(a.doc_scores, s.doc_scores) for a, s in zip(again, sols)),
+              f"phase 3 ({compute_dtype}): retrieve under precision 'high' is not bit-identical")
         qa_sols = rag.rag_qa(queries, gold_docs=gold_docs, gold_answers=gold_answers)[0]
     for exp, sol, qa in zip(expected, sols, qa_sols):
         for got in (sol, qa):
@@ -612,7 +662,8 @@ def phase3(device, compute_dtype="float32"):
         check(qa.answer == exp["answer"], f"phase 3: answer {qa.answer!r} != {exp['answer']!r}")
     check(len(sols) == len(expected), "phase 3: query count differs from the fixture")
     log(f"phase 3 ({compute_dtype}): index/retrieve/rag_qa on {len(docs)} passages, {len(queries)} "
-        f"queries match the JAX package; retrieve wall {wall * 1e3:.1f} ms, {launches} kernel launches")
+        f"queries match the JAX package, and bit-identically under precision 'high'; "
+        f"retrieve wall {wall * 1e3:.1f} ms, {launches} kernel launches")
     return {"retrieve_wall_ms": wall * 1e3, "kernel_launches": launches}
 
 
@@ -1451,7 +1502,7 @@ def phase7_graph(device, bucket):
     check(torch.equal(again[:, :n], results["coo_f32_chunks1"]), "phase 7a: a COO rerun is not bit-identical")
 
     ref = scipy_ppr(s2, d2, w2, dangling, n, reset[:SCIPY_QUERIES, :n].cpu().numpy(), DAMPING)
-    ref_t = torch.from_numpy(ref).to(device)
+    ref_t = bucket["scipy_ref"] = torch.from_numpy(ref).to(device)
     ell = results["ell_power"]
     bf16_bound = BF16_TERM_RTOL / (1 - DAMPING) * float(ell.max()) + PPR_TOL
     for name, p in results.items():
@@ -1624,12 +1675,9 @@ def adapter_flops(dim, hidden, pairs):
     return 3 * (4 * pairs * dim * hidden + 2 * pairs * pairs * dim)
 
 
-def phase7_adapter(device, sizes=ADAPTER, seed=0):
-    """(f) AdamW steps of the adapter at NV-Embed-v2's width on (query,
-    positive) pairs, positives a random rotation of the queries (as
-    ``tests/test_parallel.py`` builds them, then L2-normalized); the first
-    steps equal the same steps on the CPU."""
-    from hipporag_tpu_torch.models.adapter import AdapterParams, adamw, init_adapter, make_train_step
+def adapter_inputs(device, sizes=ADAPTER, seed=0):
+    """Phase 7f's (query, positive) pairs and initial parameters, from ``seed``."""
+    from hipporag_tpu_torch.models.adapter import init_adapter
 
     d, h, b = sizes["dim"], sizes["hidden"], sizes["pairs"]
     rng = np.random.default_rng(seed)
@@ -1640,7 +1688,18 @@ def phase7_adapter(device, sizes=ADAPTER, seed=0):
     # four steps, which leaves nothing to compare
     q = torch.nn.functional.normalize(torch.from_numpy(queries).to(device), dim=1)
     pos = torch.nn.functional.normalize((q.double() @ rot).float(), dim=1)
-    params = init_adapter(d, h, generator=torch.Generator().manual_seed(seed), device=device)
+    return q, pos, init_adapter(d, h, generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def phase7_adapter(device, sizes=ADAPTER, seed=0):
+    """(f) AdamW steps of the adapter at NV-Embed-v2's width on (query,
+    positive) pairs, positives a random rotation of the queries (as
+    ``tests/test_parallel.py`` builds them, then L2-normalized); the first
+    steps equal the same steps on the CPU."""
+    from hipporag_tpu_torch.models.adapter import AdapterParams, adamw, make_train_step
+
+    d, h, b = sizes["dim"], sizes["hidden"], sizes["pairs"]
+    q, pos, params = adapter_inputs(device, sizes, seed)
     cpu_params = AdapterParams(*(p.detach().cpu().clone().requires_grad_() for p in params))
 
     step = make_train_step(adamw(params, sizes["lr"]))
@@ -1693,6 +1752,208 @@ def phase7_multihop(device):
     return out
 
 
+# ----------------------------------------------------------------------
+# Phase 8: the multi-device path on virtual shards of the one card
+# ----------------------------------------------------------------------
+def shard_devices(device):
+    """The mesh devices of phase 8: ``SHARDS`` virtual shards of ``device``."""
+    return [device] * SHARDS
+
+
+def phase8_scoring(device, bucket):
+    """(a) ``make_sharded_score_topk`` at phase 2's shape on (1, 4) and
+    (2, 2), held to the single-device plain path; placing the keys on
+    virtual shards of the card that holds them allocates nothing."""
+    sizes = bucket["sizes"]
+    qf, keys, n, k = bucket["qf"], bucket["fact_emb"], sizes["facts"], sizes["link_top_k"]
+    want_vals, want_idx = fact_topk(qf, keys, n, k, use_pallas=False)
+    want_norm = batched_normalized_scores(qf, keys, n)
+    out = {"plain_fact_topk_ms": time_ms(lambda: fact_topk(qf, keys, n, k, use_pallas=False), reps=3)}
+    for shape in SHARD_MESHES:
+        mesh = make_mesh(shape, devices=shard_devices(device))
+        sync()
+        before = torch.cuda.memory_allocated()
+        grid = corpus_sharded(mesh).place(keys)
+        placed_bytes = torch.cuda.memory_allocated() - before
+        check(placed_bytes == 0, f"phase 8a {shape}: placing the keys on virtual shards allocated {placed_bytes} B")
+        run = make_sharded_score_topk(mesh, k=k)
+        norm, vals, idx = run(qf, grid, n)
+        check(torch.equal(idx, want_idx), f"phase 8a {shape}: sharded top-k indices differ from the plain path")
+        norm_err = float((norm - want_norm).abs().max())
+        vals_err = float((vals - want_vals).abs().max())
+        check(norm_err <= SHARDED_SCORE_ATOL and vals_err <= SHARDED_SCORE_ATOL,
+              f"phase 8a {shape}: norm max|err| {norm_err}, values {vals_err} > {SHARDED_SCORE_ATOL}")
+        out[str(shape)] = {"norm_max_abs_err": norm_err, "vals_max_abs_err": vals_err,
+                           "placed_bytes": placed_bytes, "ms": time_ms(lambda: run(qf, grid, n), reps=3)}
+    log(f"phase 8a: sharded scoring at B={qf.shape[0]} N={n} D={keys.shape[1]} k={k} on virtual shards: "
+        + json.dumps(out))
+    return out
+
+
+def phase8_ppr(device, bucket):
+    """(b) sharded ELL PPR at (1, 4) and (2, 2), held to ``batched_ppr_ell``
+    on each dp group's columns and to float64 scipy; (c) sharded COO PPR at
+    (1, 4), held to the single-device COO solve, a rerun bit-identical."""
+    sizes, index = bucket["sizes"], bucket["index"]
+    n = sizes["nodes"]
+    s2, d2, w2, dangling = bucket["coo"]
+    coo = COOGraph(src=s2, dst=d2, w_norm=w2, dangling=dangling, num_nodes=np.asarray(n, np.int32))
+    reset = bucket_reset(bucket)
+    b, n_cap = reset.shape
+    kw = dict(damping=DAMPING, max_iters=PPR_MAX_ITERS, tol=PPR_TOL)
+    out = {}
+    for shape in SHARD_MESHES:
+        dp, corpus = shape
+        mesh = make_mesh(shape, devices=shard_devices(device))
+        t0 = time.perf_counter()
+        sg = shard_graph_ell(coo, num_shards=corpus)
+        sg_dev = put_sharded_ell(mesh, sg)
+        build_s = time.perf_counter() - t0
+        r = torch.nn.functional.pad(reset, (0, corpus * sg.shard_nodes - n_cap))
+        run = make_sharded_ppr_ell(mesh, **kw)
+        p, iters = run(sg_dev, r, return_iters=True)
+        lane = b // dp
+        want = [batched_ppr_ell(index.graph, reset[g * lane:(g + 1) * lane], return_iters=True, **kw)
+                for g in range(dp)]
+        want_p, want_it = torch.cat([w[0] for w in want]), torch.cat([w[1] for w in want])
+        check(torch.equal(iters, want_it), f"phase 8b {shape}: iterations {iters.tolist()} != {want_it.tolist()}")
+        torch.testing.assert_close(p[:, :n_cap], want_p, rtol=SHARDED_ELL_RTOL, atol=SHARDED_ELL_ATOL)
+        check(not bool(p[:, n_cap:].any()), f"phase 8b {shape}: mass on padding columns")
+        scipy_err = float((p[:SCIPY_QUERIES, :n].double() - bucket["scipy_ref"]).abs().max())
+        check(scipy_err <= 1e-6, f"phase 8b {shape}: max|err| vs float64 scipy {scipy_err} > 1e-6")
+        ms = time_ms(lambda: run(sg_dev, r), reps=2)
+        it = int(iters.max())
+        out[f"ell {shape}"] = {
+            "iters_per_tile": iters[::max(1, min(lane, 128))].tolist(), "ms": ms, "ms_per_iter": ms / it,
+            "max_abs_vs_single": float((p[:, :n_cap] - want_p).abs().max()), "max_abs_vs_scipy": scipy_err,
+            "host_build_s": build_s, "counters": sharded_ell_counters(sg, b, dp)}
+
+    mesh = make_mesh(SHARD_MESHES[0], devices=shard_devices(device))
+    sg = shard_graph(coo, num_shards=SHARDS)
+    sg_dev = put_sharded_graph(mesh, sg)
+    r = torch.nn.functional.pad(reset, (0, SHARDS * sg.shard_nodes - n_cap))
+    run = make_sharded_ppr(mesh, **kw)
+    p, iters = run(sg_dev, r, return_iters=True)
+    check(torch.equal(run(sg_dev, r), p), "phase 8c: a sharded COO rerun is not bit-identical")
+    want, want_it = batched_ppr(coo.to(device), reset, return_iters=True, **kw)
+    coo_err = float((p[:, :n_cap] - want).abs().max())
+    check(coo_err <= SHARDED_COO_ATOL, f"phase 8c: max|err| vs the single-device COO solve {coo_err}")
+    ms = time_ms(lambda: run(sg_dev, r), reps=2)
+    out[f"coo {SHARD_MESHES[0]}"] = {"iters_per_tile": iters[::128].tolist(), "single_iters": want_it[::128].tolist(),
+                                     "ms": ms, "ms_per_iter": ms / int(iters.max()), "max_abs_vs_single": coo_err}
+    log(f"phase 8b/c: sharded PPR at {n} nodes, {len(s2)} directed entries, B={b} on virtual shards: "
+        + json.dumps(out))
+    return out
+
+
+def phase8_served(rag, parity):
+    """(d) phase 6's live index re-prepared with ``mesh_shape=(1, 4)``: the
+    parity queries rank as on one device; 256 served through the native front end."""
+    import threading
+
+    from hipporag_tpu_torch.serving import RetrievalService
+    from hipporag_tpu_torch.serving.native_http import make_native_server
+
+    cfg = rag.global_config
+    cfg.ppr_format = "ell"  # phase 7d left the index as COO
+    rag.prepare_retrieval_objects()
+    t0 = time.perf_counter()
+    direct = rag.retrieve(parity, num_to_retrieve=cfg.retrieval_top_k)
+    out = {"single_retrieve_s": time.perf_counter() - t0}
+    cfg.mesh_shape = SHARD_MESHES[0]
+    rag.mesh_devices = shard_devices(rag.device)
+    t0 = time.perf_counter()
+    rag.prepare_retrieval_objects()
+    sync()
+    out["sharded_prepare_s"] = time.perf_counter() - t0
+    check(rag._mesh is not None and rag._mesh.corpus == SHARDS, "phase 8d: the sharded backend is not active")
+    t0 = time.perf_counter()
+    sharded = rag.retrieve(parity, num_to_retrieve=cfg.retrieval_top_k)
+    out["sharded_retrieve_s"] = time.perf_counter() - t0
+    out["trades_vs_single"] = near_tie_trades(sharded, direct, PARITY_ATOL, "phase 8d sharded vs single device")
+
+    requests = [("/retrieve", {"query": q, "top_k": TOP_KS[i % len(TOP_KS)]}) for i, q in enumerate(parity)]
+    with RetrievalService(rag, max_wait_ms=SERVE_MAX_WAIT_MS) as svc:
+        server = make_native_server(svc, port=0, num_workers=2 * SERVE["clients"])
+        thread = threading.Thread(target=server.serve_forever, name="native-http-sharded")
+        thread.start()
+        try:
+            t0 = time.perf_counter()
+            records = run_clients(server.server_address[1], requests, SERVE["clients"])
+            wall = time.perf_counter() - t0
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+    check(all(r[2] == 200 for r in records), f"phase 8d: statuses {sorted({r[2] for r in records})}")
+    out["served_trades_vs_sharded"] = parity_trades(requests, records, sharded, PARITY_ATOL)
+    out["served"] = {"requests": len(records), "wall_s": wall, "retrieve_per_s": len(records) / wall,
+                     "latency_ms": latency_ms(records)}
+    cfg.mesh_shape = (1, 1)
+    log(f"phase 8d: {len(parity)} parity queries on the live index with mesh_shape {SHARD_MESHES[0]} rank as one "
+        f"device ({out['trades_vs_single']} near-tie trades, |Δ| ≤ {PARITY_ATOL}); " + json.dumps(out))
+    return out
+
+
+def phase8_adapter(device, single_losses, sizes=ADAPTER, seed=0):
+    """(e) the dp+tp adapter step on (2, 2) over phase 7f's pairs: its
+    first losses equal phase 7f's single-device steps."""
+    from hipporag_tpu_torch.models.adapter import adamw, make_sharded_train_step
+
+    q, pos, params = adapter_inputs(device, sizes, seed)
+    mesh = make_mesh(SHARD_MESHES[1], devices=shard_devices(device))
+    step, place = make_sharded_train_step(mesh, lambda ps: adamw(ps, sizes["lr"]))
+    sharded, qb, pb = place(params, q, pos)
+    losses = [float(step(sharded, qb, pb)) for _ in range(SHARDED_ADAPTER_STEPS)]
+    ms = time_ms(lambda: step(sharded, qb, pb), reps=5)
+    want = single_losses[:SHARDED_ADAPTER_STEPS]
+    check(np.allclose(losses, want, rtol=SHARDED_ADAPTER_RTOL, atol=0.0),
+          f"phase 8e: the sharded step's losses {losses} differ from the single-device {want}")
+    out = {"mesh": list(SHARD_MESHES[1]), "losses": losses, "single_losses": want, "ms_per_step": ms,
+           "w_in_shard_shape": list(sharded.w_in[0].shape)}
+    log("phase 8e: dp+tp adapter steps: " + json.dumps(out))
+    return out
+
+
+def phase8_encoder(device):
+    """(f) the 768x12 encoder with ``mesh_shape=(1, 4)``: 15 of phase 4's
+    texts (the batch pads to 16), equal to the unsharded encoder and to the
+    JAX package's fixture within phase 4's bounds."""
+    fixture = np.load(ENCODER_FIXTURE)
+    texts = [str(t) for t in fixture["texts"]][:15]
+    bounds = {k: float(fixture[k]) for k in ("f32_max_abs", "bf16_max_abs", "bf16_min_cos")}
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for dt in ("bfloat16", "float32"):
+            cfg = BaseConfig(embedding_model_name=ENCODER, embedding_model_dtype=dt, embedding_batch_size=ENCODE_BATCH,
+                             save_dir=tmp, mesh_shape=SHARD_MESHES[0])
+            sharded = TorchEncoderEmbeddingModel(cfg, device=device, mesh_devices=shard_devices(device))
+            check(len(sharded._shard_encoders) == SHARDS and all(e is sharded.encoder for e in sharded._shard_encoders),
+                  "phase 8f: virtual shards must share one copy of the weights")
+            plain = encoder_model(device, dt, tmp)
+            ids, mask = sharded.pretokenize(texts)
+            got = sharded.encode_pretokenized(ids, mask).cpu().numpy()
+            out[dt] = {
+                "vs_unsharded": check_bounds(got, plain.encode_pretokenized(ids, mask).cpu().numpy(), bounds, dt,
+                                             f"phase 8f ({dt}) vs the unsharded encoder"),
+                "vs_fixture": check_bounds(got, fixture[f"embeddings_{dt}"][:15], bounds, dt,
+                                           f"phase 8f ({dt}) vs the fixture"),
+            }
+            del sharded, plain
+            torch.cuda.empty_cache()
+    log("phase 8f: batch-sharded encoder: " + json.dumps(out))
+    return out
+
+
+def phase8_dryrun(device):
+    """(g) ``parallel.dryrun`` at 4 virtual shards."""
+    from hipporag_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(SHARDS, devices=shard_devices(device), log=lambda m: log(f"phase 8g: {m}"))
+    log("phase 8g: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1724,17 +1985,31 @@ def main() -> int:
     log(f"native graph core: {os.path.relpath(graph_native.library_path(), ROOT)} "
         f"({time.perf_counter() - start:.1f} s to build and load)")
 
+    run_start = time.perf_counter()
     phase1_grid(device)
     phase1_near_ties(device)
     big, launches, detail, bucket = phase2(device, FULL)
     p7 = {"graph": phase7_graph(device, bucket)}
+    p8, p8_s = {}, {}
+    t0 = time.perf_counter()
+    p8["scoring"] = phase8_scoring(device, bucket)
+    p8["ppr"] = phase8_ppr(device, bucket)
+    p8_s["a-c"] = time.perf_counter() - t0
     del bucket
     torch.cuda.empty_cache()
     detail["phase3"] = {dt: phase3(device, dt) for dt in ("float32", "bfloat16")}
     log("phase 3: " + json.dumps(detail["phase3"]))
     phase4(device)
     p5 = phase5(device)
-    p6 = phase6(device, served=phase7_served)
+    def served(rag, parity):
+        """Phases 7d/e and 8d on phase 6's live index."""
+        extra = phase7_served(rag, parity)
+        t0 = time.perf_counter()
+        p8["served"] = phase8_served(rag, parity)
+        p8_s["d"] = time.perf_counter() - t0
+        return extra
+
+    p6 = phase6(device, served=served)
     lifecycle = phase6_lifecycle(device)
     native, std = p6["native"], p6["stdlib"]
     log(f"phase 6 summary on {smi}: " + json.dumps({
@@ -1766,6 +2041,26 @@ def main() -> int:
         "served_exact": served["exact"], "served_profile": served["profile"],
         "adapter_ms_per_step": p7["adapter"]["ms_per_step"], "multihop": p7["multihop"]["result"],
     }))
+    t0 = time.perf_counter()
+    p8["adapter"] = phase8_adapter(device, p7["adapter"]["first_losses"])
+    p8["encoder"] = phase8_encoder(device)
+    p8["dryrun"] = phase8_dryrun(device)
+    p8_s["e-g"] = time.perf_counter() - t0
+    dry = p8["dryrun"]
+    log(f"phase 8 summary on {smi} ({SHARDS} virtual shards of one card: correctness and per-shard work, "
+        "not scaling): " + json.dumps({
+            "wall_s": {**p8_s, "total": sum(p8_s.values())},
+            "scoring_ms": {k: v["ms"] for k, v in p8["scoring"].items() if isinstance(v, dict)},
+            "plain_fact_topk_ms": p8["scoring"]["plain_fact_topk_ms"],
+            "ppr_ms_per_iter": {k: v["ms_per_iter"] for k, v in p8["ppr"].items()},
+            "ppr_iters": {k: v["iters_per_tile"] for k, v in p8["ppr"].items()},
+            "served_trades_vs_single": p8["served"]["trades_vs_single"],
+            "served_retrieve_per_s": p8["served"]["served"]["retrieve_per_s"],
+            "adapter_ms_per_step": p8["adapter"]["ms_per_step"],
+            "dryrun_scale": {k: dry["scale"][k] for k in ("host_build_s", "solve_s", "iters", "ms_per_iter")},
+            "dryrun_capacity": dry["capacity"],
+        }))
+    log(f"chip_smoke: phases 1-8 passed in {time.perf_counter() - run_start:.1f} s")
 
     f32, bf16 = big["f32"], big["bf16"]
     kernels = [{

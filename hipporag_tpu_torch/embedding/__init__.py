@@ -21,7 +21,8 @@ from .mock import MockEmbeddingModel
 __all__ = ["BaseEmbeddingModel", "MockEmbeddingModel", "get_embedding_model"]
 
 
-def get_embedding_model(config: BaseConfig, device: Union[str, torch.device] = "cuda") -> BaseEmbeddingModel:
+def get_embedding_model(config: BaseConfig, device: Union[str, torch.device] = "cuda",
+                        mesh_devices=None) -> BaseEmbeddingModel:
     name = config.embedding_model_name
     if name == "mock" or name.startswith("mock/"):
         return MockEmbeddingModel(config)
@@ -32,7 +33,7 @@ def get_embedding_model(config: BaseConfig, device: Union[str, torch.device] = "
     if name.startswith("jax/"):
         from .encoder import TorchEncoderEmbeddingModel
 
-        return TorchEncoderEmbeddingModel(config, device=device)
+        return TorchEncoderEmbeddingModel(config, device=device, mesh_devices=mesh_devices)
     if name.startswith("st/") or name.startswith("Transformers/"):
         from .transformers_embed import TransformersEmbeddingModel
 

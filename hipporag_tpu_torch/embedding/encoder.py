@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.precision import full_f32
 from .base import BaseEmbeddingModel
 
 _BF16 = torch.bfloat16
@@ -342,11 +343,10 @@ class TorchEncoderEmbeddingModel(BaseEmbeddingModel):
     # embedding_max_seq_len and the model's positions at encode time)
     _BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
-    def __init__(self, global_config=None, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, global_config=None, device: Union[str, torch.device] = "cuda",
+                 mesh_devices=None):
         super().__init__(global_config)
         cfg = self.global_config
-        if int(np.prod(cfg.mesh_shape)) > 1:
-            raise NotImplementedError("mesh_shape > 1 device: batch-sharded encoding is not ported")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device} requested but CUDA is not available")
@@ -374,9 +374,34 @@ class TorchEncoderEmbeddingModel(BaseEmbeddingModel):
         self.encoder = BertEncoder(params, num_heads, self.compute_dtype, device)
         self.embedding_dim = self.encoder.dim
         self.device = device
+        # multi-device: the batch split over every mesh device, the weights
+        # once per distinct device (encoding is data-parallel). Too few
+        # CUDA devices for the mesh and none given: unsharded, as in the
+        # JAX package
+        self._shard_encoders = None
+        n_mesh = int(np.prod(cfg.mesh_shape))
+        if n_mesh > 1:
+            from ..parallel.mesh import mesh_devices_for
+
+            try:
+                devices = mesh_devices_for(n_mesh, device, mesh_devices)
+            except RuntimeError:
+                devices = None
+            if devices is not None:
+                encoders = {device: self.encoder}
+                for d in devices:
+                    if d not in encoders:
+                        encoders[d] = BertEncoder(params, num_heads, self.compute_dtype, d)
+                self._shard_encoders = [encoders[d] for d in devices]
 
     def format_with_instruction(self, text: str, instruction: str) -> str:
         return text  # symmetric encoder
+
+    def batch_encode(self, texts, instruction: str = "", norm=None) -> np.ndarray:
+        """The base class's cached batch encoding, its float32 products
+        pinned to full float32 (``utils/precision.full_f32``)."""
+        with full_f32():
+            return super().batch_encode(texts, instruction, norm)
 
     def _pad_bucket(self, l: int) -> int:
         max_len = min(self.global_config.embedding_max_seq_len, self.encoder.max_positions)
@@ -414,11 +439,33 @@ class TorchEncoderEmbeddingModel(BaseEmbeddingModel):
         monotone = bool(
             (mask.astype(bool) == (np.arange(ids.shape[1])[None, :] < lengths[:, None])).all()
         )
-        ids_dev = torch.from_numpy(np.ascontiguousarray(ids, dtype=np.int32)).to(self.device)
+        if self._shard_encoders is None:
+            return self._forward(self.encoder, ids, mask, lengths, monotone)
+        # batch sharding: padded to a multiple of the mesh size with fully
+        # masked rows, one chunk per mesh device, concatenated in order
+        b_real, n = ids.shape[0], len(self._shard_encoders)
+        pad_b = (-b_real) % n
+        if pad_b:
+            ids = np.pad(ids, ((0, pad_b), (0, 0)))
+            mask = np.pad(mask, ((0, pad_b), (0, 0)))
+            lengths = np.pad(lengths, (0, pad_b))
+        rows = ids.shape[0] // n
+        outs = [
+            self._forward(enc, ids[i * rows:(i + 1) * rows], mask[i * rows:(i + 1) * rows],
+                          lengths[i * rows:(i + 1) * rows], monotone).to(self.device, non_blocking=True)
+            for i, enc in enumerate(self._shard_encoders)
+        ]
+        return torch.cat(outs)[:b_real]
+
+    @staticmethod
+    def _forward(enc: BertEncoder, ids, mask, lengths, monotone: bool) -> torch.Tensor:
+        """One forward of ``enc`` on its device: the lengths path for a
+        right-padded mask, else the whole mask."""
+        ids_dev = torch.from_numpy(np.ascontiguousarray(ids, dtype=np.int32)).to(enc.device)
         if monotone:
-            return self.encoder.encode_forward_wire(ids_dev, torch.from_numpy(lengths).to(self.device))
-        mask_dev = torch.from_numpy(np.ascontiguousarray(mask, dtype=np.int32)).to(self.device)
-        return self.encoder.encode_forward(ids_dev, mask_dev)
+            return enc.encode_forward_wire(ids_dev, torch.from_numpy(np.ascontiguousarray(lengths)).to(enc.device))
+        mask_dev = torch.from_numpy(np.ascontiguousarray(mask, dtype=np.int32)).to(enc.device)
+        return enc.encode_forward(ids_dev, mask_dev)
 
     def _encode_batch(self, texts: List[str]) -> _HostArray:
         ids, mask = self.pretokenize(texts)

@@ -12,6 +12,11 @@ package, with the device work in torch on an explicit ``device``:
   top-k documents.
 - **Dense retrieval** (``retrieve_dpr``, ``dense_passage_retrieval``):
   min-max-normalized query x passage scores and a top-k on the device.
+- **Multi-device** (``mesh_shape`` > 1): the embedding matrices and the
+  graph are corpus-sharded over a ("dp", "corpus") mesh of ``mesh_devices``
+  (``parallel/``): distributed top-k scoring, seeds on the mesh's first
+  device, the halo-exchange ELL PPR; the ``jax/`` encoder splits its
+  batches over the same devices.
 - **IRCoT** (``retrieve_ircot``, ``answer_with_ircot``): batched rounds of
   ``retrieve`` between reasoning steps.
 - **Delete** (``delete``): host-only bookkeeping of stores and graph
@@ -19,6 +24,9 @@ package, with the device work in torch on an explicit ``device``:
 - **Profiling**: with ``profile_log_dir`` set, the device work of each
   ``retrieve`` is traced by ``torch.profiler`` into that directory.
 - **QA** through the host-side ``utils/qa_utils``.
+
+Every float32 product of the device work runs at full float32 whatever
+the caller's torch precision flags (``utils/precision.full_f32``).
 
 The host components (LLMs, stores, OpenIE, prompts, the rerank filter, the
 embedders other than ``jax/``) are the port's copies of the JAX package's
@@ -55,18 +63,18 @@ from .utils.misc import (
     flatten_facts,
     text_processing,
 )
+from .utils.precision import full_f32
 from .utils.qa_utils import finish_rag_qa, reason_step
 from .utils.timing import StageTimers, device_profile
 
 from .embedding import get_embedding_model
 from .graph import GraphBuilder, compile_device_graph, pick_capacity
-from .models.retrieval import RetrievalIndex, graph_search_batch, rank_documents_topk
+from .models.retrieval import RetrievalIndex, build_reset_batch, graph_search_batch, rank_documents_topk
 from .ops.knn import retrieve_knn_pairs
 from .ops.pagerank import ell_caps, ell_from_coo
 from .ops.scoring import (
     batched_normalized_scores,
     batched_scores,
-    dense_topk,
     fact_topk,
     min_max_normalize,
     sub_buckets,
@@ -98,14 +106,14 @@ def _parse_fact_text(text: str) -> Tuple[str, str, str]:
     return tuple(json.loads(text))
 
 
-def _check_supported(cfg: BaseConfig) -> None:
-    """Refuse configuration this port does not carry yet."""
-    if int(np.prod(cfg.mesh_shape)) > 1:
-        raise NotImplementedError("mesh_shape > 1 device: multi-GPU retrieval is not ported")
-
-
 class HippoRAG:
-    """Graph-based RAG with batched retrieval on a torch device."""
+    """Graph-based RAG with batched retrieval on a torch device.
+
+    ``mesh_devices`` lists the devices of a ``mesh_shape`` > 1 mesh, dp-major
+    (repeats allowed: several virtual shards on one device). By default the
+    mesh takes the first ``prod(mesh_shape)`` CUDA devices, or that many
+    copies of ``device`` when ``device`` is the CPU.
+    """
 
     def __init__(
         self,
@@ -122,6 +130,7 @@ class HippoRAG:
         embedding_model=None,
         text_preprocessor=None,
         device: Union[str, torch.device] = "cuda",
+        mesh_devices=None,
         **kwargs,
     ):
         if global_config is None:
@@ -140,11 +149,11 @@ class HippoRAG:
                 if not hasattr(global_config, key):
                     raise ValueError(f"Unknown config field: {key}")
                 setattr(global_config, key, value)
-        _check_supported(global_config)
         self.global_config = global_config
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA is not available")
+        self.mesh_devices = mesh_devices
 
         # working dir namespaced by model pair, as in the JAX package
         llm_label = self.global_config.llm_name.replace("/", "_")
@@ -156,7 +165,9 @@ class HippoRAG:
         self.llm_model = self.llm
         self.extraction_llm = extraction_llm or self.llm
         self.qa_llm = qa_llm or self.llm
-        self.embedding_model = embedding_model or get_embedding_model(self.global_config, self.device)
+        self.embedding_model = embedding_model or get_embedding_model(
+            self.global_config, self.device, mesh_devices
+        )
         emb_cache = os.path.join(self.working_dir, "embedding_cache.sqlite")
         if hasattr(self.embedding_model, "attach_cache"):
             self.embedding_model.attach_cache(emb_cache)
@@ -210,6 +221,8 @@ class HippoRAG:
             "passage": {},
         }
         self._index_state: Optional[RetrievalIndex] = None
+        self._mesh = None  # set by _setup_sharded_backend when mesh_shape > 1
+        self._sharded_factories = None
         self._capacities: Dict[str, Optional[int]] = {
             "node": None,
             "edge": None,
@@ -322,7 +335,7 @@ class HippoRAG:
         # threshold from each descending neighbour list, so a k past
         # max_neighbors + self gives identical edges
         k_needed = min(cfg.synonymy_edge_topk, cfg.synonymy_edge_max_neighbors + 8)
-        with self.timers.track("index/synonymy_knn"):
+        with self.timers.track("index/synonymy_knn"), full_f32():
             p_rows, p_cols, p_scores = retrieve_knn_pairs(
                 embs,
                 embs,
@@ -539,6 +552,7 @@ class HippoRAG:
     def prepare_retrieval_objects(self):
         logger.info("Preparing retrieval objects")
         cfg = self.global_config
+        self._mesh = None
 
         self.entity_node_keys = list(self.entity_embedding_store.get_all_ids())
         self.passage_node_keys = list(self.chunk_embedding_store.get_all_ids())
@@ -649,6 +663,16 @@ class HippoRAG:
         for i, pid in enumerate(self.passage_node_keys):
             passage_node_ids[i] = self.graph.node_to_idx[pid]
 
+        # multi-device backend: corpus-sharded embeddings + sharded PPR; the
+        # single-device copies below are not built (at mesh scale they
+        # would not fit one device)
+        if int(np.prod(cfg.mesh_shape)) > 1:
+            self._setup_sharded_backend(coo_np, fact_subj, fact_obj,
+                                        node_chunk_counts, passage_node_ids)
+            self._index_state = self._fact_emb_dev = self._passage_emb_dev = None
+            self.ready_to_retrieve = True
+            return
+
         dev = self.device
         self._index_state = RetrievalIndex(
             graph=graph_dev.to(dev),
@@ -664,6 +688,61 @@ class HippoRAG:
         self._fact_emb_dev = torch.from_numpy(self.fact_embeddings).to(dev, emb_dtype)
         self._passage_emb_dev = torch.from_numpy(self.passage_embeddings).to(dev, emb_dtype)
         self.ready_to_retrieve = True
+
+    def _setup_sharded_backend(self, coo_np, fact_subj, fact_obj,
+                               node_chunk_counts, passage_node_ids):
+        """Corpus-shard the embedding matrices and the graph over the mesh:
+        scoring merges per-shard top-ks, PPR runs the sharded halo-exchange
+        ELL solver, the seeds are built on the mesh's first device. The
+        factories are cached per mesh and configuration, so a re-index or a
+        delete only re-shards the data."""
+        from .parallel import (
+            corpus_sharded,
+            make_mesh,
+            make_sharded_norm_scores,
+            make_sharded_ppr_ell,
+            make_sharded_score_topk,
+            put_sharded_ell,
+            shard_graph_ell,
+        )
+        from .parallel.mesh import mesh_devices_for
+
+        cfg = self.global_config
+        n_mesh = int(np.prod(cfg.mesh_shape))
+        devices = mesh_devices_for(n_mesh, self.device, self.mesh_devices)
+        key = (tuple(cfg.mesh_shape), tuple(str(d) for d in devices), cfg.linking_top_k, cfg.compute_dtype,
+               cfg.ppr_max_iters, cfg.damping, cfg.ppr_tol)
+        if self._sharded_factories is None or self._sharded_factories[0] != key:
+            mesh = make_mesh(cfg.mesh_shape, devices=devices)
+            self._sharded_factories = (
+                key,
+                mesh,
+                make_sharded_score_topk(mesh, k=cfg.linking_top_k, compute_dtype=cfg.compute_dtype),
+                make_sharded_norm_scores(mesh, compute_dtype=cfg.compute_dtype),
+                make_sharded_ppr_ell(mesh, max_iters=cfg.ppr_max_iters, damping=cfg.damping, tol=cfg.ppr_tol),
+            )
+        (_key, self._mesh, self._sharded_score, self._sharded_norm_scores,
+         self._sharded_ppr) = self._sharded_factories
+        corpus = cfg.mesh_shape[1]
+
+        def shard_rows(mat):
+            rows = ((mat.shape[0] + corpus - 1) // corpus) * corpus
+            if rows != mat.shape[0]:
+                mat = np.pad(mat, ((0, rows - mat.shape[0]), (0, 0)))
+            return corpus_sharded(self._mesh).place(mat)
+
+        self._fact_emb_sharded = shard_rows(self.fact_embeddings)
+        self._passage_emb_sharded = shard_rows(self.passage_embeddings)
+        self._sharded_graph = shard_graph_ell(coo_np, num_shards=corpus)
+        self._sharded_graph_dev = put_sharded_ell(self._mesh, self._sharded_graph)
+        home = self._mesh.devices[0, 0]
+        self._sharded_seed_arrays = tuple(
+            torch.from_numpy(a).to(home) for a in (fact_subj, fact_obj, node_chunk_counts, passage_node_ids)
+        )
+        logger.info(
+            "Sharded retrieval backend: mesh %sx%s over %d devices",
+            cfg.mesh_shape[0], corpus, self._mesh.size,
+        )
 
     # ==================================================================
     # Query encoding
@@ -709,7 +788,7 @@ class HippoRAG:
         self.get_query_embeddings(queries)
         self.embed_time += time.time() - embed_start
 
-        with device_profile(cfg.profile_log_dir, self.device):
+        with device_profile(cfg.profile_log_dir, self.device), full_f32():
             results = self._retrieve_batches(
                 queries, num_to_retrieve, len(self.fact_node_keys),
                 len(self.passage_node_keys), cfg.linking_top_k,
@@ -806,6 +885,10 @@ class HippoRAG:
     def _retrieve_batches(
         self, queries, num_to_retrieve, num_facts, num_passages, link_top_k
     ) -> List[QuerySolution]:
+        if self._mesh is not None:
+            return self._retrieve_batches_sharded(
+                queries, num_to_retrieve, num_facts, num_passages, link_top_k
+            )
         cfg = self.global_config
         dev = self.device
         bucket = max(1, cfg.ppr_batch_size)
@@ -836,7 +919,7 @@ class HippoRAG:
                     num_facts,
                     k_cand,
                     cfg.compute_dtype,
-                    use_fused=None if cfg.use_pallas_kernels else False,
+                    use_pallas=None if cfg.use_pallas_kernels else False,
                 )
                 cand_vals = cand_vals_dev.cpu().numpy()
                 cand_idx = cand_idx_dev.cpu().numpy()
@@ -903,6 +986,95 @@ class HippoRAG:
 
         return self._run_bucket_pipeline(slices, prep, finish)
 
+    def _retrieve_batches_sharded(
+        self, queries, num_to_retrieve, num_facts, num_passages, link_top_k
+    ) -> List[QuerySolution]:
+        """Multi-device retrieval: corpus-sharded scoring with distributed
+        top-k, host rerank, seeds on the mesh's first device, sharded
+        scatter-free PPR; the ranking is the JAX package's sharded one (PPR
+        scores of the real passages, DPR for queries with no fact, a stable
+        descending sort)."""
+        cfg = self.global_config
+        dp = cfg.mesh_shape[0]
+        corpus = cfg.mesh_shape[1]
+        home = self._mesh.devices[0, 0]
+        bucket = max(dp, cfg.ppr_batch_size)
+        bucket = -(-bucket // dp) * dp
+        sizes = [-(-b // dp) * dp for b in (8, 32, 128, 512) if b < bucket] + [bucket]
+        fact_subj, fact_obj, chunk_counts, passage_node_ids = self._sharded_seed_arrays
+        real_pids = passage_node_ids[:num_passages].long()
+        n_total = corpus * self._sharded_graph.shard_nodes
+        n_nodes = self.graph.num_nodes
+        slices = [queries[s : s + bucket] for s in range(0, len(queries), bucket)]
+
+        def prep(batch_queries):
+            b_real = len(batch_queries)
+            b_pad = next(b for b in sizes if b >= b_real)
+
+            qf = np.zeros((b_pad, self.fact_embeddings.shape[1]), dtype=np.float32)
+            qp = np.zeros_like(qf)
+            for i, q in enumerate(batch_queries):
+                qf[i] = self.query_to_embedding["triple"][q]
+                qp[i] = self.query_to_embedding["passage"][q]
+
+            topk_start = time.time()
+            if num_facts > 0:
+                _, vals, idx = self._sharded_score(
+                    torch.from_numpy(qf).to(home), self._fact_emb_sharded, num_facts
+                )
+                cand_vals, cand_idx = vals.cpu().numpy(), idx.cpu().numpy()
+            else:
+                cand_idx = np.zeros((b_pad, 0), dtype=np.int32)
+                cand_vals = np.zeros((b_pad, 0), dtype=np.float32)
+            topk_s = time.time() - topk_start
+
+            top_idx, top_mask, sel_scores, batch_top_facts, rerank_s = self._rerank_candidates(
+                batch_queries, cand_idx, cand_vals, link_top_k, b_pad, num_facts
+            )
+            return (batch_queries, b_real, qp, top_idx, top_mask, sel_scores,
+                    batch_top_facts, rerank_s, topk_s)
+
+        def finish(batch_queries, b_real, qp, top_idx, top_mask, sel_scores,
+                   batch_top_facts, rerank_s, topk_s):
+            self.rerank_time += rerank_s  # accumulated on the main thread
+            self.topk_time += topk_s
+            ppr_start = time.time()
+            with record_function("retrieve/graph_search"):
+                norm_p = self._sharded_norm_scores(
+                    torch.from_numpy(qp).to(home), self._passage_emb_sharded, num_passages
+                )
+                dpr_norm_dev = norm_p[:, :num_passages]
+                dpr_norm = dpr_norm_dev.cpu().numpy()
+                has_facts = top_mask.sum(axis=1) > 0
+                if num_facts > 0 and self.graph.num_edges > 0:
+                    reset = build_reset_batch(
+                        torch.from_numpy(sel_scores).to(home), torch.from_numpy(top_idx).to(home),
+                        torch.from_numpy(top_mask).to(home), dpr_norm_dev,
+                        fact_subj, fact_obj, chunk_counts, real_pids, n_nodes,
+                        n_total=n_total, link_top_k=link_top_k,
+                        passage_node_weight=cfg.passage_node_weight,
+                    )
+                    ranks = self._sharded_ppr(self._sharded_graph_dev, reset)
+                    # passage columns only: [B, P] to the host, not [B, N_total]
+                    ranks = ranks[:, real_pids].cpu().numpy()
+                    doc_scores = np.where(has_facts[:, None], ranks, dpr_norm)
+                else:
+                    doc_scores = dpr_norm
+                order = np.argsort(-doc_scores, axis=1, kind="stable")
+            self.ppr_time += time.time() - ppr_start
+
+            out = []
+            for i in range(b_real):
+                top_n = order[i][:num_to_retrieve]
+                out.append(
+                    self._build_result(
+                        batch_queries[i], top_n, doc_scores[i][top_n], batch_top_facts[i],
+                    )
+                )
+            return out
+
+        return self._run_bucket_pipeline(slices, prep, finish)
+
     def _build_result(self, query, doc_indices, doc_scores, graph_seeds) -> QuerySolution:
         keys = [self.passage_node_keys[j] for j in doc_indices]
         docs = [self.chunk_embedding_store.get_row(k)["content"] for k in keys]
@@ -920,11 +1092,24 @@ class HippoRAG:
     # ==================================================================
     def _dpr_normalized_scores(self, qp: np.ndarray, num_passages: int) -> torch.Tensor:
         """Min-max-normalized [B, P_cap] query x passage scores on the device
-        (columns past ``num_passages`` are padding and score 0)."""
-        return batched_normalized_scores(
-            torch.from_numpy(qp).to(self.device), self._passage_emb_dev, num_passages,
-            self.global_config.compute_dtype,
-        )
+        (columns past ``num_passages`` are padding and score 0).
+
+        In mesh mode the single-device passage matrix is never built, so
+        the scores come from the corpus-sharded matrix, the batch padded to
+        a multiple of the dp axis."""
+        with full_f32():
+            if self._mesh is not None:
+                dp = self.global_config.mesh_shape[0]
+                b = qp.shape[0]
+                qp = np.pad(qp, ((0, -b % dp), (0, 0)))
+                home = self._mesh.devices[0, 0]
+                return self._sharded_norm_scores(
+                    torch.from_numpy(qp).to(home), self._passage_emb_sharded, num_passages
+                )[:b]
+            return batched_normalized_scores(
+                torch.from_numpy(qp).to(self.device), self._passage_emb_dev, num_passages,
+                self.global_config.compute_dtype,
+            )
 
     def dense_passage_retrieval(self, query: str):
         """Pure DPR for one query: (order over all passages, their scores)."""
@@ -944,7 +1129,8 @@ class HippoRAG:
         gold_docs: Optional[List[List[str]]] = None,
     ):
         """Dense-only retrieval over the HippoRAG index: one batched
-        query x passage product and a top-k on the device per sub-bucket."""
+        query x passage product and a top-k on the device per sub-bucket
+        (on the sharded passage matrix in mesh mode)."""
         cfg = self.global_config
         if num_to_retrieve is None:
             num_to_retrieve = cfg.retrieval_top_k
@@ -954,11 +1140,19 @@ class HippoRAG:
 
         self.get_query_embeddings(queries)
         num_passages = len(self.passage_node_keys)
-        vals, order = dense_topk(
-            [self.query_to_embedding["passage"][q] for q in queries], self._passage_emb_dev,
-            num_passages, min(num_to_retrieve, num_passages), cfg.ppr_batch_size, cfg.compute_dtype,
-        )
-        results = [self._build_result(q, order[i], vals[i], []) for i, q in enumerate(queries)]
+        k = min(num_to_retrieve, num_passages)
+        bucket = max(1, cfg.ppr_batch_size)
+        sizes = sub_buckets(bucket)
+        results = []
+        for off in range(0, len(queries), bucket):
+            part = queries[off : off + bucket]
+            qp = np.zeros((next(b for b in sizes if b >= len(part)), self.passage_embeddings.shape[1]),
+                          dtype=np.float32)
+            for i, q in enumerate(part):
+                qp[i] = self.query_to_embedding["passage"][q]
+            scores = self._dpr_normalized_scores(qp, num_passages)[: len(part), :num_passages]
+            vals, order = (t.cpu().numpy() for t in topk_lower_index(scores, k))
+            results += [self._build_result(q, order[i], vals[i], []) for i, q in enumerate(part)]
         self.all_retrieval_time += time.time() - retrieve_start
 
         if gold_docs is not None:

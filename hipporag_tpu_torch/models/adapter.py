@@ -3,11 +3,13 @@
 A residual MLP over frozen embeddings, trained contrastively (symmetric
 in-batch InfoNCE) on (query, positive passage/fact) pairs, so linking can
 be tuned per corpus without re-embedding. Parameters are a NamedTuple of
-leaf tensors; the products are ``torch.matmul`` in float32 (TF32 stays
-off, as everywhere in the port).
+leaf tensors; the products are ``torch.matmul`` in float32, pinned to full
+float32 by ``utils/precision.full_f32`` in the train steps.
 
-The multi-device train step of the JAX package (batch over data
-parallelism, the hidden dimension split over devices) is not ported here.
+``make_sharded_train_step`` is the multi-device step on a ("dp",
+"corpus") mesh: the batch split over dp, the hidden dimension over the
+corpus axis (megatron-style column/row parallel linear pair, whose partial
+products are summed across the corpus shards).
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import CORPUS_AXIS, DP_AXIS, Mesh, Sharding
+from ..utils.precision import full_f32
 
 
 class AdapterParams(NamedTuple):
@@ -75,10 +80,89 @@ def make_train_step(optimizer: torch.optim.Optimizer, temperature: float = 0.05)
     tensors, e.g. by ``adamw``) and returns the loss before the update."""
 
     def train_step(params: AdapterParams, queries: torch.Tensor, positives: torch.Tensor):
-        optimizer.zero_grad(set_to_none=True)
-        loss = info_nce_loss(params, queries, positives, temperature)
-        loss.backward()
-        optimizer.step()
+        with full_f32():
+            optimizer.zero_grad(set_to_none=True)
+            loss = info_nce_loss(params, queries, positives, temperature)
+            loss.backward()
+            optimizer.step()
         return loss.detach()
 
     return train_step
+
+
+def adapter_shardings(mesh: Mesh):
+    """(param shardings, batch sharding) for the ("dp", "corpus") mesh:
+    ``w_in`` column-parallel and ``b_in`` split along H over the corpus
+    axis, ``w_out`` row-parallel, the batch split over dp."""
+    param_sharding = AdapterParams(
+        w_in=Sharding(mesh, (None, CORPUS_AXIS)),
+        b_in=Sharding(mesh, (CORPUS_AXIS,)),
+        w_out=Sharding(mesh, (CORPUS_AXIS, None)),
+    )
+    return param_sharding, Sharding(mesh, (DP_AXIS, None))
+
+
+def make_sharded_train_step(mesh: Mesh, optimizer, temperature: float = 0.05):
+    """dp+tp train step: batch split over dp, hidden dimension over corpus.
+
+    ``optimizer`` builds the optimizer over a list of tensors (e.g.
+    ``lambda ps: adamw(ps, 1e-2)``). Returns ``(train_step, place)``:
+
+    - ``place(params, queries, positives) -> (sharded, queries, positives)``
+      lays out an ``AdapterParams`` as fields of per-shard leaf tensors
+      (shard c of every parameter on mesh device (0, c), so the optimizer
+      state, created with the parameters it updates, lives there too) and
+      the pairs as per-group blocks, and builds the optimizer over the shards;
+    - ``train_step(sharded, queries, positives) -> loss`` updates the shards
+      in place and returns the loss before the update, on device (0, 0).
+
+    Each dp group g computes its rows on devices (g, c): the hidden shards
+    through the column-parallel ``w_in`` and the row-parallel ``w_out``,
+    whose partial products are summed in shard order on (g, 0). InfoNCE
+    needs the whole batch's negatives, so the groups' outputs are gathered
+    on (0, 0) before the loss, as the JAX package's global batch is. The
+    parameters reach the other groups' devices through differentiable
+    copies, so autograd sums the groups' gradients into the shards: the dp
+    gradient all-reduce, with none written by hand.
+    """
+    param_sh, batch_sh = adapter_shardings(mesh)
+    state = {}
+
+    def place(params: AdapterParams, queries, positives):
+        sharded = AdapterParams(*(
+            [t.detach().clone().requires_grad_() for t in sh.place(p.detach())[0]]
+            for sh, p in zip(param_sh, params)
+        ))
+        state["optimizer"] = optimizer([t for field in sharded for t in field])
+        q, pos = batch_sh.place(queries), batch_sh.place(positives)
+        return sharded, [row[0] for row in q], [row[0] for row in pos]
+
+    def forward(sharded: AdapterParams, queries, positives):
+        home = mesh.devices[0, 0]
+        outs = []
+        for g, x in enumerate(queries):
+            partial = None
+            for c in range(mesh.corpus):
+                dev = mesh.devices[g, c]
+                h = F.gelu(x.to(dev) @ sharded.w_in[c].to(dev) + sharded.b_in[c].to(dev), approximate="tanh")
+                part = (h @ sharded.w_out[c].to(dev)).to(x.device)
+                partial = part if partial is None else partial + part
+            out = x + partial
+            out = out / torch.clamp_min(torch.linalg.vector_norm(out, dim=-1, keepdim=True), 1e-12)
+            outs.append(out.to(home))
+        q = torch.cat(outs)
+        pos = torch.cat([p.to(home) for p in positives])
+        logits = (q @ pos.T) / temperature
+        labels = torch.arange(q.shape[0], device=home)
+        return 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))
+
+    def train_step(sharded: AdapterParams, queries, positives):
+        opt = state["optimizer"]
+        with full_f32():
+            opt.zero_grad(set_to_none=True)
+            loss = forward(sharded, queries, positives)
+            loss.backward()
+            opt.step()
+        return loss.detach()
+
+    return train_step, place

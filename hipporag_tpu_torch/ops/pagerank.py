@@ -433,16 +433,22 @@ def _bucket_reduce(p_g: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor) -> t
 
 
 def _hub_rows(graph: ELLGraph) -> torch.Tensor:
+    """[n_hub_cap, max_chunks] rows of the hub partial sums per hub slot
+    (:func:`hub_row_map` of the graph's ``hub_seg``)."""
+    return hub_row_map(graph.hub_seg, graph.hub_zero.shape[0])
+
+
+def hub_row_map(hub_seg: torch.Tensor, n_hub_cap: int) -> torch.Tensor:
     """[n_hub_cap, max_chunks] rows of the hub partial sums per hub slot.
 
     ``hub_seg`` is sorted, so hub h owns a contiguous run of chunk rows;
     missing entries point at row Rcap, a zero row appended to the partials.
     Summing this padded gather along dim 1 is the deterministic, fixed-order
-    replacement for the JAX sorted ``segment_sum``.
+    replacement for the JAX sorted ``segment_sum``; segment ids at or past
+    ``n_hub_cap`` (padding rows) are dropped.
     """
-    n_hub_cap = graph.hub_zero.shape[0]
-    r = graph.hub_seg.shape[0]
-    seg = graph.hub_seg.long()
+    r = hub_seg.shape[0]
+    seg = hub_seg.long()
     counts = torch.bincount(seg, minlength=n_hub_cap + 1)[:n_hub_cap]
     starts = torch.cumsum(counts, 0) - counts
     width = max(int(counts.max()) if n_hub_cap else 0, 1)
@@ -496,27 +502,40 @@ def _stalled2(err, err_prev, err_prev2, tol, damping) -> bool:
 _PPR_BATCH_TILE = 128
 
 
-def tile_columns(solve_fn, r_slot: torch.Tensor, rdm: torch.Tensor):
+def tile_columns(solve_fn, r_slot, rdm):
     """Run ``solve_fn(r_slot, rdm) -> tuple of [*, b] tensors`` on sequential
     ``_PPR_BATCH_TILE``-wide column tiles and concatenate along the batch.
+
+    ``r_slot`` and ``rdm`` are tensors, or lists of tensors with one column
+    count (one per shard of a sharded solve, which then tiles all shards in
+    lockstep); the outputs of ``solve_fn`` follow the same form.
 
     Past one tile the batch is zero-padded to whole tiles, as in the JAX
     package: a padded column's coefficient c still moves 1 -> 1-d in the
     first step, which enters its tile's residual, so padding keeps the
     per-tile iteration counts equal to the reference's.
     """
-    b = r_slot.shape[1]
+    def each(fn, x):
+        return [fn(t) for t in x] if isinstance(x, list) else fn(x)
+
+    b = (r_slot[0] if isinstance(r_slot, list) else r_slot).shape[1]
     if b <= _PPR_BATCH_TILE:
         return solve_fn(r_slot, rdm)
     pad = -b % _PPR_BATCH_TILE
-    r_slot = torch.nn.functional.pad(r_slot, (0, pad))
-    rdm = torch.nn.functional.pad(rdm, (0, pad))
+    r_slot = each(lambda t: torch.nn.functional.pad(t, (0, pad)), r_slot)
+    rdm = each(lambda t: torch.nn.functional.pad(t, (0, pad)), rdm)
     outs = [
-        solve_fn(r_slot[:, s:s + _PPR_BATCH_TILE].contiguous(),
-                 rdm[:, s:s + _PPR_BATCH_TILE])
+        solve_fn(each(lambda t: t[:, s:s + _PPR_BATCH_TILE].contiguous(), r_slot),
+                 each(lambda t: t[:, s:s + _PPR_BATCH_TILE], rdm))
         for s in range(0, b + pad, _PPR_BATCH_TILE)
     ]
-    return tuple(torch.cat(o, dim=1)[:, :b] for o in zip(*outs))
+
+    def join(parts):
+        if isinstance(parts[0], list):
+            return [torch.cat(p, dim=1)[:, :b] for p in zip(*parts)]
+        return torch.cat(parts, dim=1)[:, :b]
+
+    return tuple(join(o) for o in zip(*outs))
 
 
 def batched_ppr_ell(
@@ -648,8 +667,15 @@ def _edge_chunks(graph: COOGraph, n: int, edge_chunks: int = 1):
     """Contiguous slices of the dst-sorted edge list, each as (src, w_norm,
     segment lengths [n]). Past one chunk the list is padded to whole
     chunks with weight-0 edges from node 0 to the last node, which keeps
-    every chunk dst-sorted. The lengths come from dst row pointers."""
+    every chunk dst-sorted. The lengths come from dst row pointers.
+
+    Trailing weight-0 entries (capacity padding, all on the last row) add
+    nothing and are dropped first: left in, they would make the last row's
+    segment as long as the padding, and one thread sums a segment alone."""
     src, dst, w = graph.src, graph.dst, graph.w_norm
+    nonzero = torch.nonzero(w)
+    live = int(nonzero[-1]) + 1 if len(nonzero) else min(1, w.shape[0])
+    src, dst, w = src[:live], dst[:live], w[:live]
     chunks = max(1, edge_chunks)
     if chunks > 1:
         e = src.shape[0]

@@ -27,17 +27,19 @@ def topk_lower_index(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def min_max_normalize(scores: torch.Tensor, where: torch.Tensor | None = None) -> torch.Tensor:
-    """Row-wise min-max scaling to [0, 1]; constant rows map to all-ones.
+def min_max_normalize(scores: torch.Tensor, axis: int = -1,
+                      where: torch.Tensor | None = None) -> torch.Tensor:
+    """Min-max scaling to [0, 1] along ``axis`` (rows by default); constant
+    rows map to all-ones.
 
     ``where`` optionally masks out padded columns (they return 0).
     """
     if where is not None:
-        lo = torch.where(where, scores, torch.inf).amin(-1, keepdim=True)
-        hi = torch.where(where, scores, -torch.inf).amax(-1, keepdim=True)
+        lo = torch.where(where, scores, torch.inf).amin(axis, keepdim=True)
+        hi = torch.where(where, scores, -torch.inf).amax(axis, keepdim=True)
     else:
-        lo = scores.amin(-1, keepdim=True)
-        hi = scores.amax(-1, keepdim=True)
+        lo = scores.amin(axis, keepdim=True)
+        hi = scores.amax(axis, keepdim=True)
     rng = hi - lo
     out = torch.where(
         rng == 0, torch.ones_like(scores), (scores - lo) / torch.where(rng == 0, 1.0, rng)
@@ -137,12 +139,15 @@ def fact_topk(
     valid_n,
     k: int,
     compute_dtype: str = "float32",
+    use_pallas: bool | None = None,
     use_fused: bool | None = None,
 ):
     """Top-k normalized fact scores: (norm_vals [B, k], idx [B, k]).
 
-    ``use_fused=None`` routes by :func:`fused_topk_route`; ``False`` pins the
-    plain path. Padded/absent keys yield norm value 0.
+    ``use_pallas`` (the JAX package's name) and its alias ``use_fused``
+    choose the path: ``None`` routes by :func:`fused_topk_route`, ``True``
+    takes the fused kernel and ``False`` pins the plain path. Padded/absent
+    keys yield norm value 0.
 
     ``compute_dtype`` applies to the plain path only, which rounds the
     queries to bfloat16 along with the keys (:func:`batched_scores`), as the
@@ -150,6 +155,9 @@ def fact_topk(
     kernel, takes the keys as they are resident (float32, or bfloat16 under
     ``compute_dtype="bfloat16"``) with float32 queries and accumulation.
     """
+    if use_pallas is not None and use_fused is not None and use_pallas != use_fused:
+        raise ValueError("use_pallas and its alias use_fused disagree")
+    use_fused = use_pallas if use_pallas is not None else use_fused
     if use_fused is None:
         use_fused = fused_topk_route(queries.shape[0], keys.shape[0], queries.device)
     if use_fused:

@@ -24,6 +24,7 @@ from .prompts import PromptTemplateManager, get_query_instruction
 from .storage import get_embedding_store
 from .utils.logging import get_logger
 from .utils.misc import Chunk, QuerySolution
+from .utils.precision import full_f32
 from .utils.qa_utils import finish_rag_qa
 from .utils.timing import StageTimers
 
@@ -158,10 +159,11 @@ class StandardRAG:
                 self.query_to_embedding[q] = e
 
         n_passages = len(self.passage_node_keys)
-        vals, order = dense_topk(
-            [self.query_to_embedding[q] for q in queries], self._passage_emb_dev, n_passages,
-            min(num_to_retrieve, n_passages), cfg.ppr_batch_size, cfg.compute_dtype,
-        )
+        with full_f32():
+            vals, order = dense_topk(
+                [self.query_to_embedding[q] for q in queries], self._passage_emb_dev, n_passages,
+                min(num_to_retrieve, n_passages), cfg.ppr_batch_size, cfg.compute_dtype,
+            )
         results = []
         for i, q in enumerate(queries):
             keys = [self.passage_node_keys[j] for j in order[i]]

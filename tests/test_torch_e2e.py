@@ -8,8 +8,9 @@ which ``chip_smoke.py`` holds the port to on the GPU; a test here
 regenerates it so it cannot go stale. A subprocess with jax,
 ``hipporag_tpu``, pandas, pyarrow, httpx and filelock blocked shows the
 port runs without them, with the mock embedder and with the port's encoder:
-index, retrieve (ELL and COO), one adapter step, the multihop harness,
-delete, and one served ``/retrieve``. Each package gets its own
+index, retrieve (ELL, COO, and a ``mesh_shape=(1, 2)`` index on two CPU
+virtual shards), one adapter step, the multihop harness, delete, and one
+served ``/retrieve``. Each package gets its own
 ``BaseConfig``.
 """
 
@@ -117,7 +118,8 @@ def test_bfloat16_fused_route_matches_fixture(tmp_path, monkeypatch):
 def test_port_runs_without_jax_pandas_pyarrow_httpx_filelock(tmp_path):
     """The mock embedder, and the port's encoder (``jax/random-64x2``)
     through ``HippoRAG.retrieve``, ``retrieve_dpr`` and ``StandardRAG``; a
-    COO retrieve, one adapter step and ``run_multihop_eval``; then
+    COO retrieve, a ``mesh_shape=(1, 2)`` retrieve on CPU virtual shards,
+    one adapter step and ``run_multihop_eval``; then
     ``delete`` and one ``/retrieve`` served by the stdlib front end."""
     code = f"""
 import sys
@@ -147,6 +149,12 @@ coo = hipporag_tpu_torch.HippoRAG(hipporag_tpu_torch.BaseConfig(
 coo.index(docs)
 assert all(s.docs for s in coo.retrieve(queries))
 assert type(coo._index_state.graph).__name__ == "COOGraph"
+mesh = hipporag_tpu_torch.HippoRAG(hipporag_tpu_torch.BaseConfig(
+    llm_name="mock", embedding_model_name="mock", vector_store_type="memory", mesh_shape=(1, 2),
+    save_dir={str(tmp_path)!r} + "/mesh"), device="cpu")
+mesh.index(docs)
+assert [s.docs for s in mesh.retrieve(queries)] == [s.docs for s in coo.retrieve(queries)]
+assert mesh._mesh is not None and mesh._mesh.corpus == 2
 from hipporag_tpu_torch.models.adapter import adamw, init_adapter, make_train_step
 params = init_adapter(16, 32, generator=torch.Generator().manual_seed(0), device="cpu")
 loss = make_train_step(adamw(params, 1e-2))(params, torch.randn(8, 16), torch.randn(8, 16))
@@ -227,11 +235,40 @@ def test_port_imports_nothing_of_the_jax_package(tmp_path):
         "hipporag_tpu", "hipporag_tpu.config", "hipporag_tpu.llm", "jax.numpy", "jaxlib"]
 
 
-@pytest.mark.parametrize("override", [{"mesh_shape": (1, 2)}])
-def test_unported_config_raises(tmp_path, override):
-    """Only the multi-device configuration is refused."""
+def test_mesh_config_builds_and_retrieves_on_cpu_shards(tmp_path):
+    """``mesh_shape=(1, 2)`` on the CPU: two virtual shards of the CPU, the
+    sharded backend active, the sample queries ranked as on one device."""
+    docs, queries, _, _ = load_dataset("sample", os.path.join(ROOT, "data"))
+    sols = {}
+    for shape in ((1, 2), (1, 1)):
+        cfg = _config(tmp_path / str(shape[1]))
+        cfg.mesh_shape = shape
+        rag = hipporag_tpu_torch.HippoRAG(cfg, device="cpu")
+        rag.index(docs)
+        sols[shape] = rag.retrieve(queries)
+        assert (rag._mesh is not None) == (shape == (1, 2))
+    for got, want in zip(sols[(1, 2)], sols[(1, 1)]):
+        assert got.docs == want.docs
+        np.testing.assert_allclose(got.doc_scores, want.doc_scores, rtol=1e-5, atol=1e-7)
+
+
+def test_mesh_needs_enough_cuda_devices(tmp_path, monkeypatch):
+    """A CUDA mesh with no ``mesh_devices`` needs that many visible cards:
+    too few raise ``RuntimeError`` when the index is prepared, as in the JAX
+    package (checked with the visible count patched to one)."""
+    from hipporag_tpu_torch.parallel.mesh import mesh_devices_for
+
+    docs, queries, _, _ = load_dataset("sample", os.path.join(ROOT, "data"))
     cfg = _config(tmp_path)
-    for key, value in override.items():
-        setattr(cfg, key, value)
-    with pytest.raises(NotImplementedError):
-        hipporag_tpu_torch.HippoRAG(cfg, device="cpu")
+    cfg.mesh_shape = (1, 2)
+    rag = hipporag_tpu_torch.HippoRAG(cfg, device="cpu")
+    rag.index(docs)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    rag.device = torch.device("cuda", 0)  # the mesh now defaults to the visible cards
+    with pytest.raises(RuntimeError, match="needs 2 CUDA devices but only 1"):
+        rag.prepare_retrieval_objects()
+    with pytest.raises(RuntimeError):
+        mesh_devices_for(2, "cuda")
+    assert mesh_devices_for(2, "cuda", ["cuda:0", "cuda:0"]) == [torch.device("cuda", 0)] * 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert mesh_devices_for(2, "cuda") == [torch.device("cuda", 0), torch.device("cuda", 1)]

@@ -178,11 +178,16 @@ def test_non_jax_names_go_to_the_host_factory(tmp_path):
     assert isinstance(get_embedding_model(cfg, device="cpu"), MockEmbeddingModel)
 
 
-def test_mesh_refused(tmp_path):
-    cfg = BaseConfig(embedding_model_name="jax/random-64x1", save_dir=str(tmp_path),
-                     mesh_shape=(1, 2))
-    with pytest.raises(NotImplementedError):
-        port.TorchEncoderEmbeddingModel(cfg, device="cpu")
+def test_mesh_shards_the_batch(tmp_path):
+    """``mesh_shape=(1, 2)`` splits each batch over two CPU virtual shards
+    (one copy of the weights); the embeddings equal the unsharded model's."""
+    kw = dict(embedding_model_name="jax/random-64x1", save_dir=str(tmp_path), embedding_model_dtype="float32")
+    model = port.TorchEncoderEmbeddingModel(BaseConfig(mesh_shape=(1, 2), **kw), device="cpu")
+    assert [enc is model.encoder for enc in model._shard_encoders] == [True, True]
+    texts = _texts()
+    assert_within_bounds(model.batch_encode(texts, norm=True),
+                         port.TorchEncoderEmbeddingModel(BaseConfig(**kw), device="cpu").batch_encode(texts, norm=True),
+                         "float32")
 
 
 def test_host_array_on_cpu():

@@ -142,11 +142,19 @@ def test_min_max_normalize_edge_cases_match_jax():
     x = np.array([[1.0, 1.0, 1.0, 5.0], [0.0, 2.0, 4.0, 9.0], [3.0, 3.0, 3.0, 3.0]], np.float32)
     where = np.array([[True, True, True, False]])
     for w in (None, where):
-        got = scoring.min_max_normalize(torch.from_numpy(x), None if w is None else torch.from_numpy(w))
+        got = scoring.min_max_normalize(torch.from_numpy(x), where=None if w is None else torch.from_numpy(w))
         want = ref.min_max_normalize(jnp.asarray(x), where=None if w is None else jnp.asarray(w))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    got = scoring.min_max_normalize(torch.from_numpy(x), torch.from_numpy(where)).numpy()
+    got = scoring.min_max_normalize(torch.from_numpy(x), where=torch.from_numpy(where)).numpy()
     assert np.all(got[:, 3] == 0.0) and np.all(got[0, :3] == 1.0)  # masked 0, constant row 1
+    # the second positional parameter is the axis, as in the JAX package
+    for axis in (0, 1, -1):
+        got = scoring.min_max_normalize(torch.from_numpy(x), axis)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref.min_max_normalize(jnp.asarray(x), axis)))
+    col_mask = np.array([[True], [True], [False]])
+    got = scoring.min_max_normalize(torch.from_numpy(x), 0, torch.from_numpy(col_mask))
+    want = ref.min_max_normalize(jnp.asarray(x), 0, jnp.asarray(col_mask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_topk_lower_index_matches_lax_top_k_on_ties():
@@ -177,6 +185,13 @@ def test_fact_topk_routes_to_the_kernel_only_on_cuda():
     j_vals, j_idx = ref.fact_topk(jnp.asarray(q), jnp.asarray(keys), 300, 5)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
     np.testing.assert_allclose(vals.numpy(), np.asarray(j_vals), rtol=1e-6)
-    f_vals, f_idx = scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys), 300, 5, use_fused=True)
-    np.testing.assert_array_equal(f_idx.numpy(), np.asarray(j_idx))
-    np.testing.assert_allclose(f_vals.numpy(), np.asarray(j_vals), rtol=1e-5, atol=1e-6)
+    # use_pallas is the JAX package's name for the route; use_fused its alias
+    for kw in ({"use_fused": True}, {"use_pallas": True}):
+        f_vals, f_idx = scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys), 300, 5, **kw)
+        np.testing.assert_array_equal(f_idx.numpy(), np.asarray(j_idx))
+        np.testing.assert_allclose(f_vals.numpy(), np.asarray(j_vals), rtol=1e-5, atol=1e-6)
+    p_vals, p_idx = scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys), 300, 5, "float32", False)
+    np.testing.assert_array_equal(p_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(p_vals.numpy(), vals.numpy())
+    with pytest.raises(ValueError):
+        scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys), 300, 5, use_pallas=True, use_fused=False)

@@ -9,8 +9,8 @@ service, a soak), and the HTTP contract on both front ends (stdlib threads
 and the C++ epoll loop, built here from the port's copy of the source with
 ``make``). A cross-package case posts one request sequence to both
 packages' ``dispatch`` on the sample corpus and requires identical status
-codes and JSON bodies (scores to 1e-5). The sharded serving cases wait for
-the port's multi-GPU slice.
+codes and JSON bodies (scores to 1e-5). The two sharded serving cases run
+a ``mesh_shape=(2, 4)`` engine on eight CPU virtual shards.
 """
 
 import json
@@ -286,6 +286,25 @@ def test_service_qa_and_stats(served_rag):
         st = svc.stats()
         assert st["latency_ms"]["qa"] is None
         assert st["qa"]["requests"] == 1
+
+
+def test_service_over_sharded_backend(tmp_path, served_rag):
+    # serving composes with the multi-device orchestrator: a mesh-backed
+    # engine behind the same RetrievalService must rank like the
+    # single-device one under concurrent coalesced traffic
+    single_rag, queries = served_rag
+    docs, _, _, _ = load_dataset("sample", DATA_DIR)
+    cfg = _config(save_dir=str(tmp_path / "mesh"), embedding_dim=96, ppr_batch_size=8, retrieval_top_k=9)
+    cfg.mesh_shape = (2, 4)
+    rag = HippoRAG(global_config=cfg, device="cpu")
+    rag.index(docs)
+    want = {q: s.docs for q, s in zip(queries, single_rag.retrieve(list(queries)))}
+    with RetrievalService(rag, max_wait_ms=20) as svc:
+        with ThreadPoolExecutor(max_workers=len(queries)) as pool:
+            served = list(pool.map(svc.retrieve, queries))
+    assert rag._mesh is not None, "sharded backend not active"
+    for q, s in zip(queries, served):
+        assert s.docs == want[q]
 
 
 def test_service_response_cache(tmp_path):
@@ -1141,6 +1160,102 @@ def test_http_contract_identical_across_frontends(frontend):
 # ======================================================================
 # The two packages behind one route dispatcher, and the CLI
 # ======================================================================
+
+
+def test_sharded_serving_soak_native_frontend(tmp_path):
+    """Online mutation + SHARDED retrieval (mesh_shape=(2, 4) on eight CPU
+    virtual shards) + the C++ native transport, exercised together. No
+    status code other than 200/503-shed may ever escape, and the response
+    cache must be generation-invalidated by online /index and /delete while
+    concurrent traffic is in flight."""
+    import http.client
+
+    cfg = _config(save_dir=str(tmp_path / "shard_soak"), embedding_dim=96, ppr_batch_size=8, retrieval_top_k=5)
+    cfg.mesh_shape = (2, 4)
+    rag = HippoRAG(global_config=cfg, device="cpu")
+    rag.index([f"ShardDoc{i} relates to ShardEntity{i % 5}." for i in range(16)])
+
+    svc = RetrievalService(rag, max_wait_ms=2, max_pending=64, response_cache_size=32)
+    server = _make_frontend("native", svc)
+    port = server.server_address[1]
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    base = f"http://127.0.0.1:{port}"
+    bad_codes, errors = [], []
+    done = threading.Event()
+
+    def post(path, payload):
+        code, body = _post(base + path, payload)
+        if code not in (200, 503):
+            bad_codes.append((path, code, body))
+        return code, body
+
+    try:
+        svc.retrieve("warm", top_k=2)
+        assert rag._mesh is not None, "sharded backend not active"
+
+        def client(i):
+            n = 0
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            while not done.is_set():
+                try:
+                    if i == 0 and n % 9 == 4:
+                        post("/index", {"docs": [f"Hot{i}_{n} relates to ShardEntity1."]})
+                    elif i == 0 and n % 9 == 8:
+                        post("/delete", {"docs": [f"Hot{i}_{n - 4} relates to ShardEntity1."]})
+                    elif i % 3 == 2:
+                        conn.request("GET", "/metrics" if n % 2 else "/health")
+                        resp = conn.getresponse()
+                        resp.read()
+                        if resp.status != 200:
+                            bad_codes.append(("/health", resp.status, None))
+                    else:
+                        q = "What relates to ShardEntity1?" if n % 2 else f"cold shard query {i} {n}?"
+                        code, body = post("/retrieve", {"query": q, "top_k": 3})
+                        if code == 200:
+                            assert body["docs"], body
+                except Exception as exc:  # noqa: BLE001
+                    errors.append(f"client {i}: {exc!r}")
+                    return n
+                n += 1
+            conn.close()
+            return n
+
+        with ThreadPoolExecutor(max_workers=5) as pool:
+            futs = [pool.submit(client, i) for i in range(5)]
+            time.sleep(8)
+            done.set()
+            counts = [f.result(timeout=120) for f in futs]
+
+        # generation-correct cache invalidation across a mutation, via HTTP
+        probe_q = {"query": "Which doc relates to CacheProbeEntity?", "top_k": 4}
+        code, before = post("/retrieve", probe_q)
+        assert code == 200 and not any("CacheProbe" in d for d in before["docs"])
+        code, again = post("/retrieve", probe_q)  # now cached
+        assert code == 200 and again["docs"] == before["docs"]
+        code, _ = post("/index", {"docs": ["CacheProbeDoc relates to CacheProbeEntity."]})
+        assert code == 200
+        code, after = post("/retrieve", probe_q)
+        assert code == 200 and any("CacheProbe" in d for d in after["docs"]), (
+            "response cache served a stale generation after online /index"
+        )
+        code, _ = post("/delete", {"docs": ["CacheProbeDoc relates to CacheProbeEntity."]})
+        assert code == 200
+        code, gone = post("/retrieve", probe_q)
+        assert code == 200 and not any("CacheProbe" in d for d in gone["docs"])
+        st = svc.stats()
+    finally:
+        done.set()
+        server.shutdown()
+        server.server_close()
+        svc.close()
+
+    assert not errors, errors
+    assert not bad_codes, bad_codes
+    assert all(c is not None and c > 0 for c in counts), counts
+    assert st["retrieve"]["failed_batches"] == 0
+    assert st["response_cache"]["hits"] > 0
+    assert server.counters()["protocol_errors"] == 0
 
 
 def _contract_sequence(docs, queries):
