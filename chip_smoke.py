@@ -6,7 +6,7 @@
 from the repository root, on a machine with a CUDA GPU, nvcc and PyTorch
 built for CUDA (no JAX needed). It builds the hand-written CUDA kernel from
 ``hipporag_tpu_torch/csrc`` and the native graph core from
-``hipporag_tpu_torch/graph/native`` and runs eight phases; any failure ends
+``hipporag_tpu_torch/graph/native`` and runs nine phases; any failure ends
 the run with a non-zero exit:
 
 1. Kernel vs plain: ``fused_score_topk`` (CUDA pass A) against
@@ -22,7 +22,11 @@ the run with a non-zero exit:
    of 128 queries): DPR scores, fact top-k through the kernel, seeds, PPR
    and the document top-k, as ``HippoRAG._retrieve_batches`` strings them.
    Checks that the kernel ran, that a second run is bit-identical, and PPR
-   against a float64 scipy power iteration.
+   against a float64 scipy power iteration. At the same shape, the default
+   route of ``fact_topk`` under bf16 compute (K1 on bf16 keys, the queries
+   rounded to bf16 as the JAX package's XLA path rounds them) against the
+   plain bf16 route: equal indices (near ties within 2e-6 may trade, and are
+   counted), normalized values within 1e-6, both routes timed.
 3. The user entry points: ``HippoRAG(...).index()``, ``.retrieve()`` and
    ``.rag_qa()`` on the sample corpus with the mock LLM and embedder, held
    against ``tests/fixtures/torch_port_sample_expected.json`` (recorded
@@ -89,7 +93,14 @@ the run with a non-zero exit:
    (2, 2), its first 5 losses equal to phase 7f's; (f) the 768x12 encoder
    with ``mesh_shape=(1, 4)`` equal to the unsharded encoder and the
    fixture; (g) ``parallel.dryrun`` at 4 shards (the 1,048,576-node halo
-   solve, the memory model, the 16 MiB-budget reduce, the capacity table).
+   solve, the memory model, the 16 MiB-budget reduce, the weak-scaling point
+   from 2 to 4 shards checked on its work counters, the capacity table).
+9. The quality sections through ``evaluation.bench_sections.run_section``:
+   ``multihop`` on the card against
+   ``tests/fixtures/torch_port_multihop_expected.json``; ``2wiki``,
+   ``hotpot``, ``musique`` and ``replay`` run when their corpus
+   (``bench_sections.corpus_path()``) exists and print a skip line when it
+   does not.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Neither JAX nor ``hipporag_tpu`` may be
@@ -188,10 +199,10 @@ LIFECYCLE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_lifecycl
 LIFECYCLE_CONFIG = dict(llm_name="mock", embedding_model_name="mock", vector_store_type="memory")
 LIFECYCLE_DELETED = 3
 # rankings are compared exactly; scores of the port against the JAX package's.
-# With bf16 keys the fused top-k keeps the queries in f32 (as the TPU kernel
-# does) where the JAX package's plain CPU path rounds them to bf16 too: the
-# doc scores then differ by ~1e-5
-LIFECYCLE_SCORE_ATOL = {"float32": 1e-5, "bfloat16": 1e-4}
+# With bf16 keys the default route rounds the queries to bf16 before the fused
+# top-k, as the JAX package's XLA path does, so both dtypes agree to float32
+# rounding (the card's bf16 doc scores differed by 2.8e-5 when it did not)
+LIFECYCLE_SCORE_ATOL = {"float32": 1e-5, "bfloat16": 1e-5}
 # phase 6: 10,000 passages (the HippoRAG 2 paper's corpora hold about 4k-23k),
 # served to 16 closed-loop clients. The embedder is the hashing n-gram model
 # at BERT-base width: the random-weight encoder maps every text to nearly the
@@ -237,6 +248,11 @@ SHARDED_SCORE_ATOL = 1e-5
 SHARDED_ELL_RTOL, SHARDED_ELL_ATOL = 1e-5, 1e-7
 SHARDED_COO_ATOL = 2e-6
 SHARDED_ADAPTER_STEPS, SHARDED_ADAPTER_RTOL = 5, 1e-4
+# phase 2's bf16 default route against the plain bf16 route: the same exact
+# bf16 x bf16 products summed in another order (float64 against cuBLAS f32)
+BF16_ROUTE_TIE_ATOL, BF16_ROUTE_NORM_ATOL = 2e-6, 1e-6
+# phase 9: the quality sections that read the 2WikiMultihopQA corpus
+CORPUS_SECTIONS = ("2wiki", "hotpot", "musique", "replay")
 
 
 def scan_delta(q, keys):
@@ -573,6 +589,58 @@ def run_bucket(bucket):
     return cand_vals, cand_idx, doc_scores, iters, order, vals, stage
 
 
+def topk_trades(idx, want_idx, q, keys, atol):
+    """Where two top-k index sets differ at a rank, both keys must score
+    within ``atol`` of each other (exactly, in float64). Returns the count
+    of traded positions."""
+    diff = idx.long() != want_idx.long()
+    if not bool(diff.any()):
+        return 0
+    rows = diff.nonzero()[:, 0]
+    qd = q.double()[rows]
+    got = (qd * keys[idx.long()[diff]].double()).sum(-1)
+    want = (qd * keys[want_idx.long()[diff]].double()).sum(-1)
+    gap = float((got - want).abs().max())
+    check(gap <= atol, f"top-k indices differ beyond a near tie: score gap {gap} > {atol}")
+    return int(diff.sum())
+
+
+def phase2_bf16_route(qf, fact_emb, num_facts, k):
+    """The default route of ``fact_topk`` under bf16 compute at the phase-2
+    shape: K1 on bf16 keys with the queries rounded to bf16, as the JAX
+    package's XLA path rounds them, against the plain bf16 route
+    (``use_pallas=False``). Also the explicit kernel route
+    (``use_pallas=True``, float32 queries), to show what the rounding changes."""
+    keys = fact_emb.to(torch.bfloat16)
+    fused_topk.SCAN_LAUNCHES.reset()
+    norm, idx = fact_topk(qf, keys, num_facts, k, "bfloat16")
+    sync()
+    launches = fused_topk.SCAN_LAUNCHES.count
+    check(launches == 1, f"phase 2 bf16 route: {launches} kernel launches, want 1")
+    want_norm, want_idx = fact_topk(qf, keys, num_facts, k, "bfloat16", use_pallas=False)
+    qr = qf.to(torch.bfloat16).float()
+    trades = topk_trades(idx, want_idx, qr, keys, BF16_ROUTE_TIE_ATOL)
+    norm_err = float((norm - want_norm).abs().max())
+    check(norm_err <= BF16_ROUTE_NORM_ATOL,
+          f"phase 2 bf16 route: normalized values max|err| {norm_err} > {BF16_ROUTE_NORM_ATOL}")
+    _f32_norm, f32_idx = fact_topk(qf, keys, num_facts, k, "bfloat16", use_pallas=True)
+    f32_rows = int((f32_idx.long() != want_idx.long()).any(1).sum())
+    out = {
+        "kernel_launches": launches, "near_tie_trades": trades, "norm_max_abs_err": norm_err,
+        "rows_differing_with_f32_queries": f32_rows,
+        # default, plain, default: both routes see the same card state
+        "default_route_ms": [time_ms(lambda: fact_topk(qf, keys, num_facts, k, "bfloat16"))],
+        "plain_route_ms": time_ms(lambda: fact_topk(qf, keys, num_facts, k, "bfloat16", use_pallas=False)),
+    }
+    out["default_route_ms"].append(time_ms(lambda: fact_topk(qf, keys, num_facts, k, "bfloat16")))
+    out["default_route_ms"] = float(np.mean(out["default_route_ms"]))
+    log(f"phase 2 bf16 default route at B={qf.shape[0]} N={keys.shape[0]} D={keys.shape[1]} k={k}: K1 with "
+        f"bf16-rounded queries equals the plain bf16 route ({trades} near-tie trades within "
+        f"{BF16_ROUTE_TIE_ATOL}; norm max|err| {norm_err:.2e}); with f32 queries {f32_rows} rows would differ; "
+        + json.dumps(out))
+    return out
+
+
 def phase2(device, sizes, seed=0):
     bucket = build_bucket(device, sizes, seed)
     index, qp, passage_emb = bucket["index"], bucket["qp"], bucket["passage_emb"]
@@ -580,6 +648,7 @@ def phase2(device, sizes, seed=0):
     n, p, b, k = sizes["nodes"], sizes["passages"], sizes["batch"], sizes["link_top_k"]
 
     big = phase1_big(bucket["qf"], bucket["fact_emb"], sizes["facts"], k)
+    big["bf16_route"] = phase2_bf16_route(bucket["qf"], bucket["fact_emb"], sizes["facts"], k)
 
     torch.cuda.reset_peak_memory_stats()
     fused_topk.SCAN_LAUNCHES.reset()
@@ -1954,6 +2023,44 @@ def phase8_dryrun(device):
     return out
 
 
+# ----------------------------------------------------------------------
+# Phase 9: the quality sections through evaluation/bench_sections
+# ----------------------------------------------------------------------
+def phase9_sections(device):
+    """``bench_sections.run_section`` on the card: ``multihop`` held to the
+    JAX package's numbers; each corpus section run when its corpus file
+    exists, and reported as skipped when it does not."""
+    from hipporag_tpu_torch.evaluation import bench_sections
+
+    with open(MULTIHOP_FIXTURE) as fh:
+        want = json.load(fh)["result"]
+    out = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        fused_topk.SCAN_LAUNCHES.reset()
+        t0 = time.perf_counter()
+        got = bench_sections.run_section("multihop", os.path.join(tmp, "multihop"), device=device)
+        wall = time.perf_counter() - t0
+        launches = fused_topk.SCAN_LAUNCHES.count
+        check("multihop3_error" not in got, f"phase 9 multihop: {got.get('multihop3_error')}")
+        check(got == want, f"phase 9 multihop: {got} != the JAX package's {want}")
+        check(launches > 0, "phase 9 multihop: the section did not launch the fused kernel")
+        out["multihop"] = {"result": got, "wall_s": wall, "kernel_launches": launches}
+        log("phase 9: run_section('multihop') on the card equals the JAX package: " + json.dumps(out["multihop"]))
+        corpus = bench_sections.corpus_path()
+        for section in CORPUS_SECTIONS:
+            if not os.path.exists(corpus):
+                out[section] = {"skipped": f"corpus absent: {corpus}"}
+                log(f"phase 9: section {section} skipped: its corpus {corpus} is absent "
+                    "(BENCH_2WIKI_CORPUS may name a copy of the 2WikiMultihopQA corpus)")
+                continue
+            t0 = time.perf_counter()
+            result = bench_sections.run_section(section, os.path.join(tmp, section), device=device)
+            out[section] = {"result": result, "wall_s": time.perf_counter() - t0}
+            log(f"phase 9: section {section}: " + json.dumps(out[section], default=str))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2047,6 +2154,7 @@ def main() -> int:
     p8["dryrun"] = phase8_dryrun(device)
     p8_s["e-g"] = time.perf_counter() - t0
     dry = p8["dryrun"]
+    weak = dry["weak_scaling"]
     log(f"phase 8 summary on {smi} ({SHARDS} virtual shards of one card: correctness and per-shard work, "
         "not scaling): " + json.dumps({
             "wall_s": {**p8_s, "total": sum(p8_s.values())},
@@ -2059,8 +2167,16 @@ def main() -> int:
             "adapter_ms_per_step": p8["adapter"]["ms_per_step"],
             "dryrun_scale": {k: dry["scale"][k] for k in ("host_build_s", "solve_s", "iters", "ms_per_iter")},
             "dryrun_capacity": dry["capacity"],
+            "dryrun_weak_scaling": {k: weak[k] for k in ("shards", "host_build_s", "solve_s", "scale_solve_s",
+                                                         "rows_ratio")},
         }))
-    log(f"chip_smoke: phases 1-8 passed in {time.perf_counter() - run_start:.1f} s")
+    t0 = time.perf_counter()
+    p9 = phase9_sections(device)
+    log(f"phase 9 summary on {smi}: " + json.dumps({
+        "wall_s": time.perf_counter() - t0,
+        **{name: v.get("skipped", "ran") for name, v in p9.items() if name != "multihop"},
+        "multihop": p9["multihop"]["result"]}))
+    log(f"chip_smoke: phases 1-9 passed in {time.perf_counter() - run_start:.1f} s")
 
     f32, bf16 = big["f32"], big["bf16"]
     kernels = [{
@@ -2078,6 +2194,8 @@ def main() -> int:
             "phase7d_served_coo": served["coo_k1_launches"],
             "phase7e_profiled_retrieve": served["profiled_k1_launches"],
             "phase7g_multihop": p7["multihop"]["kernel_launches"],
+            "phase2_bf16_default_route": big["bf16_route"]["kernel_launches"],
+            "phase9_multihop_section": p9["multihop"]["kernel_launches"],
         },
         "max_abs_err": f32["err"],
         "delta_bound": f32["delta"],
@@ -2093,6 +2211,7 @@ def main() -> int:
         "plain_ms_bf16": bf16["ms"]["scan_plain"],
         "bound_ms_bf16": bf16["bound"]["bound_ms"],
         "bound_by_bf16": bf16["bound"]["bound_by"],
+        "fact_topk_bf16_default_route": big["bf16_route"],
     }]
     stray = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hipporag_tpu"))
     check(not stray, f"the port imported {stray[:5]}")

@@ -9,7 +9,11 @@ The [B, N] query-by-key score matrix is never formed. Two passes:
   accumulated in float32, as the Pallas kernel takes them. The kernel
   reaches f32 accuracy on the TF32 tensor cores with an error-compensated
   split, so its extrema may differ from exact f32 dots by a small delta
-  (bounded in the kernel's source note).
+  (bounded in the kernel's source note). Under bf16 compute the default
+  route of ``ops.scoring.fact_topk`` passes queries already rounded to
+  bfloat16 (the reference's XLA numerics, ``scoring.rounds_bf16_queries``):
+  such a query splits into hi = q and lo = 0, so against bfloat16 keys the
+  kernel and the float64 rescoring below form the exact bf16 x bf16 dots.
 
   Refinement (torch ops): the true top-k values of a row live in its top-k
   tiles by max, so those tiles are gathered and re-dotted, one selected

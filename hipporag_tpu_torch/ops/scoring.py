@@ -3,7 +3,8 @@
 Query-by-key similarity matrices in float32 at full precision, row-wise
 min-max normalization over the valid columns, and top-k with the tie order
 of ``lax.top_k`` (the lower index first). ``fact_topk`` routes to the
-streamed fused kernel (``ops/fused_topk.py``) on CUDA.
+streamed fused kernel (``ops/fused_topk.py``) on CUDA, with the reference's
+bf16 query rounding where the reference would not have taken its kernel.
 """
 
 from __future__ import annotations
@@ -133,6 +134,22 @@ def fused_topk_route(b: int, n: int, device) -> bool:
     return torch.device(device).type == "cuda"
 
 
+# The [B, N] float32 score size above which the JAX package's ``fact_topk``
+# takes its Pallas kernel on a TPU (its ``_PALLAS_SCORE_BYTES``, chosen there
+# for speed on v5e). The port's routing does not use it: here it is the size
+# where the reference's bf16 numerics change. At or below it the reference's
+# XLA path rounds the queries to bfloat16 with the keys; above it the kernel
+# keeps float32 queries.
+BF16_QUERY_ROUNDING_SCORE_BYTES = 3 << 30
+
+
+def rounds_bf16_queries(b: int, n: int, compute_dtype: str) -> bool:
+    """Whether the default route of :func:`fact_topk` rounds the queries to
+    bfloat16 before the fused kernel, as the reference's XLA path does for
+    a [B, N] score matrix of at most ``BF16_QUERY_ROUNDING_SCORE_BYTES``."""
+    return compute_dtype == "bfloat16" and b * n * 4 <= BF16_QUERY_ROUNDING_SCORE_BYTES
+
+
 def fact_topk(
     queries: torch.Tensor,
     keys: torch.Tensor,
@@ -149,20 +166,29 @@ def fact_topk(
     takes the fused kernel and ``False`` pins the plain path. Padded/absent
     keys yield norm value 0.
 
-    ``compute_dtype`` applies to the plain path only, which rounds the
-    queries to bfloat16 along with the keys (:func:`batched_scores`), as the
-    reference's XLA path does. The fused path, like the reference's Pallas
-    kernel, takes the keys as they are resident (float32, or bfloat16 under
-    ``compute_dtype="bfloat16"``) with float32 queries and accumulation.
+    The plain path rounds the queries to bfloat16 along with the keys under
+    ``compute_dtype="bfloat16"`` (:func:`batched_scores`), as the reference's
+    XLA path does. The fused path takes float32 queries against the keys
+    as they are resident (float32, or bfloat16 under bf16 compute), as the
+    reference's Pallas kernel does, with one exception that keeps the
+    reference's numbers: on the default route (``use_pallas`` and
+    ``use_fused`` both ``None``), where the reference would have taken its
+    XLA path (:func:`rounds_bf16_queries`), bf16 compute rounds the queries
+    (and any float32 keys) to bfloat16 before the kernel. The kernel then
+    forms the exact bf16 x bf16 products that XLA path does.
     """
     if use_pallas is not None and use_fused is not None and use_pallas != use_fused:
         raise ValueError("use_pallas and its alias use_fused disagree")
     use_fused = use_pallas if use_pallas is not None else use_fused
-    if use_fused is None:
+    routed = use_fused is None
+    if routed:
         use_fused = fused_topk_route(queries.shape[0], keys.shape[0], queries.device)
     if use_fused:
         from .fused_topk import fused_score_topk
 
+        if routed and rounds_bf16_queries(queries.shape[0], keys.shape[0], compute_dtype):
+            queries = queries.to(torch.bfloat16).float()
+            keys = keys.to(torch.bfloat16)
         norm, _raw, idx = fused_score_topk(queries, keys, valid_n, k)
         return norm, idx
     _scores, values, indices = score_and_topk(queries, keys, valid_n, k, compute_dtype)

@@ -8,7 +8,9 @@ single-device scorer, COO and ELL PPR over a toy graph, one dp+tp adapter
 step; then an EXECUTED halo-exchange solve at 1,048,576 nodes / ~10M
 entries with its per-device work counters and a check of the per-device
 memory model against the placed operator; the width-blocked reduce under a
-16 MiB gather budget, held to the unblocked solve; and the capacity table
+16 MiB gather budget, held to the unblocked solve; with 4 or more devices,
+the weak-scaling point (half the shards, half the graph, the per-device
+work counters checked flat); and the capacity table
 of the 10M-node / 100M-entry stretch shape on 8 devices of this card's
 memory (not measured without a card).
 
@@ -110,6 +112,53 @@ def placed_operator_bytes(sg_dev, shard: int = 0) -> int:
     fields = [*sg_dev.bucket_idx, *sg_dev.bucket_wgt, sg_dev.hub_idx, sg_dev.hub_wgt, sg_dev.hub_seg,
               sg_dev.local_inv, sg_dev.slot_to_node, sg_dev.send_ids, sg_dev.dangling]
     return sum(f[0][shard].nbytes for f in fields)
+
+
+def weak_scaling(devices, corpus_s, scale_nodes, scale_edges, batch, rng, cnt, solve_s, log) -> dict:
+    """Half the corpus axis at the same shard size: a (1, corpus_s // 2)
+    mesh over the first half of the devices solves a clustered graph of
+    half the nodes and entries. The claim is per-device work, read from the
+    counters: rows gathered per device stay flat (0.7-1.4x) from half the
+    shards to ``corpus_s``, and the halo exchange ships under a fifth of an
+    all-gather's bytes. ``cnt`` and ``solve_s`` are the scale phase's."""
+    corpus_w = corpus_s // 2
+    mesh_w = make_mesh((1, corpus_w), devices=devices[:corpus_w])
+    t0 = time.perf_counter()
+    coo_w = clustered_coo(scale_nodes // 2, scale_edges // 2, corpus_w, seed=9)
+    sgw = shard_graph_ell(coo_w, num_shards=corpus_w)
+    sgw_dev = put_sharded_ell(mesh_w, sgw)
+    build_s = time.perf_counter() - t0
+    reset_w = np.zeros((batch, corpus_w * sgw.shard_nodes), np.float32)
+    for i in range(batch):
+        reset_w[i, rng.integers(0, scale_nodes // 2, 5)] = rng.uniform(0.1, 1, 5)
+    home = mesh_w.devices[0, 0]
+    reset_w = torch.from_numpy(reset_w).to(home)
+    ppr_w = make_sharded_ppr_ell(mesh_w, max_iters=24)
+    ppr_w(sgw_dev, reset_w)  # warm-up, as the scale phase's timed solve had
+    _sync(home)
+    t0 = time.perf_counter()
+    ranks_w, iters = ppr_w(sgw_dev, reset_w, return_iters=True)
+    _sync(home)
+    solve_w = time.perf_counter() - t0
+    sums = ranks_w.sum(1).cpu().numpy()
+    assert np.allclose(sums, 1.0, atol=1e-4), sums
+    cnt_w = sharded_ell_counters(sgw, batch, dp=1)
+    rows_ratio = cnt["rows_gathered_per_iter_device"] / max(cnt_w["rows_gathered_per_iter_device"], 1)
+    assert 0.7 <= rows_ratio <= 1.4, (
+        f"per-device gathered rows not flat across weak scaling: {cnt_w['rows_gathered_per_iter_device']} -> "
+        f"{cnt['rows_gathered_per_iter_device']} ({rows_ratio:.2f}x)")
+    assert cnt["halo_ici_bytes_per_iter_device"] * 5 < cnt["allgather_ici_bytes_per_iter_device"], (
+        "halo exchange lost its advantage over an all-gather at scale")
+    log(f"weak scaling ok: {corpus_w} shards x {cnt_w['shard_nodes']} rows -> {corpus_s} shards x "
+        f"{cnt['shard_nodes']} rows; per-device rows gathered/iter {cnt_w['rows_gathered_per_iter_device']} -> "
+        f"{cnt['rows_gathered_per_iter_device']} ({rows_ratio:.2f}x, counter-checked flat); exchange bytes/iter/"
+        f"device {cnt_w['halo_ici_bytes_per_iter_device'] / 1024:.0f} -> "
+        f"{cnt['halo_ici_bytes_per_iter_device'] / 1024:.0f} KiB (an all-gather would ship "
+        f"{cnt['allgather_ici_bytes_per_iter_device'] / 1024:.0f} KiB); solve {solve_w:.3f} -> {solve_s:.3f} s "
+        f"(virtual shards, informational: wall time there is not a scaling claim)")
+    return {"shards": [corpus_w, corpus_s], "nodes": scale_nodes // 2, "directed_entries": int(len(coo_w.src)),
+            "iters": int(iters.max()), "host_build_s": build_s, "solve_s": solve_w, "scale_solve_s": solve_s,
+            "rows_ratio": rows_ratio, "counters": cnt_w}
 
 
 def dryrun_multichip(n_devices: int, devices=None, scale_nodes: int = SCALE_NODES,
@@ -229,6 +278,10 @@ def dryrun_multichip(n_devices: int, devices=None, scale_nodes: int = SCALE_NODE
     assert cap_err < 1e-6, f"budget-capped reduce diverged: {cap_err}"
     out["capped_reduce_max_abs"] = cap_err
     log(f"budget-capped reduce ok: {CAPPED_GATHER_BYTES >> 20} MiB gather budget, max |diff| {cap_err:.1e}")
+
+    if corpus_s >= 4:
+        out["weak_scaling"] = weak_scaling(devices, corpus_s, scale_nodes, scale_edges, scale_batch, rng2, cnt,
+                                           solve_s, log)
 
     # --- capacity table: the 10M / 100M stretch shape on 8 of this card ---
     cap = torch.cuda.get_device_properties(home).total_memory if home.type == "cuda" else None

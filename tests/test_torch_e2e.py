@@ -93,8 +93,9 @@ def test_sample_fixture_matches_jax_package(runs):
 
 def test_bfloat16_fused_route_matches_fixture(tmp_path, monkeypatch):
     """compute_dtype="bfloat16" keeps bf16 fact embeddings resident; routed
-    through the fused top-k (as every CUDA call is), with f32 queries, the
-    sample run still ranks and answers as the JAX package's f32 run.
+    through the fused top-k (as every CUDA call is), with the queries rounded
+    to bf16 as the JAX package's XLA path rounds them, the sample run still
+    ranks and answers as the JAX package's f32 run.
     ``chip_smoke.py`` phase 3 checks the same through the kernel."""
     from hipporag_tpu_torch.ops import fused_topk, scoring
 

@@ -140,11 +140,15 @@ PORT_ONLY_PARAMS = {
     "fact_topk": {"use_fused"},
     "retrieve_knn": {"device"},
     "init_adapter": {"generator", "device"},
+    "run_section": {"device"},
 }
 # exports only the port has: the host seed twin, re-exported by ``parallel``
 PORT_ONLY_EXPORTS = {"build_reset_vectors"}
 ADAPTER_NAMES = ("AdapterParams", "init_adapter", "adapter_apply", "info_nce_loss", "make_train_step",
                  "adapter_shardings", "make_sharded_train_step")
+# the quality sections' entry points (not exported by either ``evaluation``)
+SECTION_NAMES = ("corpus_path", "run_section")
+NAMED = {"models.adapter": ADAPTER_NAMES, "evaluation.bench_sections": SECTION_NAMES}
 
 
 def _params(fn, drop):
@@ -153,17 +157,18 @@ def _params(fn, drop):
     return [p for p in inspect.signature(fn).parameters if p not in drop]
 
 
-@pytest.mark.parametrize("package", ["ops", "parallel", "models.adapter"])
+@pytest.mark.parametrize("package", ["ops", "parallel", "models.adapter", "evaluation.bench_sections"])
 def test_ops_exports_match_jax(package):
     """Every export of the JAX package's ``ops`` and ``parallel`` (and the
-    adapter's public names) exists in the port with the same parameter
-    names in the same order, but for the listed deliberate differences."""
+    adapter's and quality sections' public functions) exists in the port
+    with the same parameter names in the same order, but for the listed
+    deliberate differences."""
     import importlib
 
     ref_mod = importlib.import_module(f"hipporag_tpu.{package}")
     port_mod = importlib.import_module(f"hipporag_tpu_torch.{package}")
-    names = ADAPTER_NAMES if package == "models.adapter" else ref_mod.__all__
-    if package != "models.adapter":
+    names = NAMED[package] if package in NAMED else ref_mod.__all__
+    if package not in NAMED:
         assert sorted(set(port_mod.__all__) - PORT_ONLY_EXPORTS) == sorted(names)
     for name in names:
         ref_fn, port_fn = getattr(ref_mod, name), getattr(port_mod, name)

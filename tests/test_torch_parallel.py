@@ -577,16 +577,48 @@ def test_collectives_have_lax_semantics():
 # The dry run at a small size
 # ---------------------------------------------------------------------------
 
-def test_dryrun_small():
+@pytest.fixture(scope="module")
+def dryrun_small():
     from hipporag_tpu_torch.parallel.dryrun import dryrun_multichip
 
     lines = []
     out = dryrun_multichip(4, devices=["cpu"] * 4, scale_nodes=16_384, scale_edges=60_000, log=lines.append)
-    assert out["mesh"] == [2, 2] and len(lines) == 7
+    return out, lines
+
+
+def test_dryrun_small(dryrun_small):
+    out, lines = dryrun_small
+    assert out["mesh"] == [2, 2] and len(lines) == 8
     assert 0.95 <= out["hbm_model"]["ratio"] <= 1.05
     assert out["capped_reduce_max_abs"] < 1e-6
     assert out["capacity"]["device_memory_bytes"] is None
     assert all(row["fits"] is None for row in out["capacity"]["table"])
+
+
+def test_dryrun_weak_scaling_counters_equal_jax(dryrun_small):
+    """The weak-scaling point (``__graft_entry__.dryrun_multichip``'s last
+    section): 2 -> 4 shards at a fixed shard size, its counters equal to the
+    JAX package's on the same clustered graph, and both of its checks hold."""
+    import __graft_entry__
+
+    out, lines = dryrun_small
+    weak, scale = out["weak_scaling"], out["scale"]["counters"]
+    assert weak["shards"] == [2, 4] and weak["nodes"] == 8_192
+    coo = __graft_entry__._clustered_coo(8_192, 30_000, 2, seed=9)
+    want = ref_sharded.sharded_ell_counters(ref_sharded.shard_graph_ell(coo, num_shards=2), 8, dp=1)
+    assert weak["counters"] == want
+    assert weak["directed_entries"] == len(coo.src)
+    assert 0.7 <= weak["rows_ratio"] <= 1.4
+    assert weak["rows_ratio"] == scale["rows_gathered_per_iter_device"] / want["rows_gathered_per_iter_device"]
+    assert scale["halo_ici_bytes_per_iter_device"] * 5 < scale["allgather_ici_bytes_per_iter_device"]
+    assert any(line.startswith("weak scaling ok") and "informational" in line for line in lines)
+
+
+def test_dryrun_skips_weak_scaling_below_four_shards():
+    from hipporag_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(2, devices=["cpu"] * 2, scale_nodes=4_096, scale_edges=12_000, log=lambda m: None)
+    assert "weak_scaling" not in out and out["mesh"] == [2, 1]
 
 
 def test_sample_data_equals_jax_module():

@@ -4,6 +4,11 @@ The JAX fused kernel runs in Pallas interpret mode, as ``tests/test_pallas.py``
 runs it; on CPU tensors the port's fused path runs its plain PyTorch pass A
 (the CUDA kernel itself is checked against it on the GPU by
 ``chip_smoke.py``). Tolerances are those of ``tests/test_pallas.py``.
+
+The bf16 fact top-k on the kernel route is held to the JAX package's
+default ``fact_topk`` (its XLA path, which rounds the queries to bf16) at
+B = 128, N = 32,768, D = 1,024: the same indices in every row, norm within
+1e-6. With float32 queries on that route some rows' top-5 differ.
 """
 
 import jax
@@ -195,3 +200,96 @@ def test_fact_topk_routes_to_the_kernel_only_on_cuda():
     np.testing.assert_array_equal(p_vals.numpy(), vals.numpy())
     with pytest.raises(ValueError):
         scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys), 300, 5, use_pallas=True, use_fused=False)
+
+
+# ---------------------------------------------------------------------------
+# bf16 fact top-k: the reference's query rounding on the default route
+# ---------------------------------------------------------------------------
+
+def _unit_keys_near_queries(b, n, d, seed):
+    """Unit-norm keys and queries near random keys (real top-k margins, and
+    near ties that bf16 query rounding can reorder)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.standard_normal((n, d)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    q = keys[rng.choice(n, b, replace=False)] + 0.02 * rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return q.astype(np.float32), keys
+
+
+def _record_fused_queries(monkeypatch):
+    """Wrap the fused path so a test sees the queries it was handed."""
+    seen = []
+    inner = fused_topk.fused_score_topk
+
+    def recording(queries, keys, valid_n, k):
+        seen.append((queries.clone(), keys.dtype))
+        return inner(queries, keys, valid_n, k)
+
+    monkeypatch.setattr(fused_topk, "fused_score_topk", recording)
+    return seen
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_default_route_fact_topk_matches_jax_at_scale(monkeypatch, compute_dtype):
+    """The kernel route (forced, as on the card) at B=128, N=32,768,
+    D=1,024 ranks as the JAX package's default ``fact_topk``: with bf16
+    compute that is its XLA path, which rounds the queries to bf16 too."""
+    b, n, d, k = 128, 32_768, 1_024, 5
+    q, keys = _unit_keys_near_queries(b, n, d, seed=11)
+    monkeypatch.setattr(scoring, "fused_topk_route", lambda b, n, device: True)
+    seen = _record_fused_queries(monkeypatch)
+    resident = torch.from_numpy(keys).to(torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32)
+    norm, idx = scoring.fact_topk(torch.from_numpy(q), resident, n, k, compute_dtype)
+    j_norm, j_idx = ref.fact_topk(jnp.asarray(q), jnp.asarray(keys), n, k, compute_dtype)
+    assert len(seen) == 1, "the default route did not take the fused path"
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_allclose(norm.numpy(), np.asarray(j_norm), rtol=0, atol=1e-6)
+    rounded = torch.equal(seen[0][0], torch.from_numpy(q).to(torch.bfloat16).float())
+    assert rounded == (compute_dtype == "bfloat16")
+
+
+def test_explicit_use_pallas_keeps_f32_queries_as_the_jax_kernel():
+    """``use_pallas=True`` is the Pallas kernel's own semantics: float32
+    queries against the resident bf16 keys, as the JAX kernel computes."""
+    q, keys = _unit_keys_near_queries(16, 2_048, 256, seed=12)
+    keys16 = torch.from_numpy(keys).to(torch.bfloat16)
+    j_keys = jnp.asarray(keys).astype(jnp.bfloat16)
+    for kw in ({"use_pallas": True}, {"use_fused": True}):
+        with pytest.MonkeyPatch.context() as mp:
+            seen = _record_fused_queries(mp)
+            norm, idx = scoring.fact_topk(torch.from_numpy(q), keys16, 2_000, 5, "bfloat16", **kw)
+        assert torch.equal(seen[0][0], torch.from_numpy(q)), kw
+        j_norm, _raw, j_idx = ref_fused.fused_score_topk(jnp.asarray(q), j_keys, 2_000, 5, interpret=True)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+        np.testing.assert_allclose(norm.numpy(), np.asarray(j_norm), rtol=0, atol=1e-6)
+
+
+def test_bf16_query_rounding_rule_at_the_threshold(monkeypatch):
+    """The rule in the style of ``tests/test_pallas.py``'s routing grid: the
+    default route rounds exactly where the JAX package's TPU route keeps
+    its XLA path, and never under float32 compute."""
+    gib = 1 << 30
+    b = 256
+    assert scoring.BF16_QUERY_ROUNDING_SCORE_BYTES == ref._PALLAS_SCORE_BYTES
+
+    def rounds(score_bytes, dtype="bfloat16"):
+        return scoring.rounds_bf16_queries(b, score_bytes // (b * 4), dtype)
+
+    assert rounds(3 * gib) is True  # at the threshold: the reference's XLA path
+    assert rounds(3 * gib + b * 4) is False  # one more column: its kernel
+    for size in (int(0.12 * gib), int(2.44 * gib), int(4.88 * gib), 10 * gib, 3 * gib, 3 * gib + b * 4):
+        assert rounds(size) is (not ref.pallas_topk_route(b, size // (b * 4), backend="tpu")), size
+        assert rounds(size, "float32") is False
+
+    # fact_topk at both sides, with the threshold moved to a small size;
+    # float32 keys are rounded with the queries, as batched_scores rounds them
+    q, keys = _unit_keys_near_queries(4, 512, 64, seed=13)
+    monkeypatch.setattr(scoring, "fused_topk_route", lambda b, n, device: True)
+    seen = _record_fused_queries(monkeypatch)
+    for threshold, want_rounded in ((4 * 512 * 4, True), (4 * 512 * 4 - 1, False)):
+        monkeypatch.setattr(scoring, "BF16_QUERY_ROUNDING_SCORE_BYTES", threshold)
+        for keys_dtype in (torch.bfloat16, torch.float32):
+            scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys).to(keys_dtype), 512, 5, "bfloat16")
+            assert torch.equal(seen[-1][0], torch.from_numpy(q).to(torch.bfloat16).float()) is want_rounded
+            assert seen[-1][1] == (torch.bfloat16 if want_rounded else keys_dtype)
