@@ -165,6 +165,8 @@ from hipporag_tpu_torch.parallel import (  # noqa: E402
     sharded_ell_counters,
 )
 
+from hipporag_tpu_torch.utils.timing import dropped_spans, recording  # noqa: E402
+
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_sample_expected.json")
 ENCODER_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_encoder_768x12.npz")
 ENTRY_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_encoder_sample_expected.json")
@@ -1249,10 +1251,18 @@ def serve_traffic(corpus, sizes, hot):
     return out
 
 
-def engine_seconds(rag):
-    """The orchestrator's cumulative retrieve stage clocks (host wall)."""
-    return {"retrieve": rag.all_retrieval_time, "query_embed": rag.embed_time, "fact_topk": rag.topk_time,
-            "rerank": rag.rerank_time, "graph_search_and_rank": rag.ppr_time}
+# the orchestrator's retrieve stages, by the span that times each
+ENGINE_SPANS = {"retrieve": "retrieve", "query_embed": "retrieve/embed", "fact_topk": "retrieve/fact_topk",
+                "rerank": "retrieve/filter", "graph_search_and_rank": "retrieve/graph_search"}
+
+
+def engine_seconds(spans, since_ns):
+    """The orchestrator's retrieve stage clocks (host wall): the summed
+    seconds of each stage's spans among ``spans`` that started at or after
+    ``since_ns`` (``time.time_ns()``)."""
+    check(dropped_spans() == 0, "the span log dropped spans: the engine clocks would undercount")
+    return {key: sum(s.seconds for s in spans if s.name == name and s.start_ns >= since_ns)
+            for key, name in ENGINE_SPANS.items()}
 
 
 def short_window(port, corpus, sizes, hot, gone, what):
@@ -1306,7 +1316,7 @@ def phase6(device, sizes=None, seed=0, served=None):
     corpus = ServeCorpus(seed, sizes["passages"], sizes["entity_pool"])
     out = {"passages": sizes["passages"], "corpus_generate_s": time.perf_counter() - t0}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp, recording() as rec:
         cfg = BaseConfig(save_dir=tmp, **SERVE_CONFIG)
         rag = HippoRAG(cfg, device=device)
         docs = list(corpus.docs)
@@ -1341,7 +1351,7 @@ def phase6(device, sizes=None, seed=0, served=None):
                 log(f"phase 6 parity: {len(parity)} distinct queries served concurrently rank as "
                     f"rag.retrieve; {out['parity_trades']} near-tie trades (|Δ| ≤ {PARITY_ATOL})")
 
-                before, clocks = svc.stats(), engine_seconds(rag)
+                before, window_ns = svc.stats(), time.time_ns()
                 mutations = {}
                 done = [0]
                 lock = threading.Lock()
@@ -1401,7 +1411,7 @@ def phase6(device, sizes=None, seed=0, served=None):
                 check(not mutator.is_alive(), "phase 6: the /index or /delete request did not return")
                 check("error" not in mutations, f"phase 6: mutation failed: {mutations.get('error')}")
                 after = svc.stats()
-                clocks = {k: v - clocks[k] for k, v in engine_seconds(rag).items()}
+                clocks = engine_seconds(rec.spans(), window_ns)
                 gone = {corpus.docs[i] for i in deleted}
                 # the same kind of window on both front ends: retrieve only, after the mutations
                 native_short = short_window(port, corpus, sizes, hot, gone, "native")

@@ -22,7 +22,13 @@ package, with the device work in torch on an explicit ``device``:
 - **Delete** (``delete``): host-only bookkeeping of stores and graph
   refcounts; the next retrieve rebuilds the device state in either format.
 - **Profiling**: with ``profile_log_dir`` set, the device work of each
-  ``retrieve`` is traced by ``torch.profiler`` into that directory.
+  ``retrieve`` is traced by ``torch.profiler`` into that directory. Each
+  stage of ``retrieve`` is a span (``utils/timing``: ``retrieve``,
+  ``retrieve/embed``, and per bucket ``retrieve/fact_topk``,
+  ``retrieve/filter``, ``retrieve/graph_search`` around
+  ``retrieve/seeds``, ``retrieve/ppr`` and ``retrieve/doc_topk``, and
+  ``retrieve/build_result``), recorded while a profiler records or a
+  ``recording()`` block is open.
 - **QA** through the host-side ``utils/qa_utils``.
 
 Every float32 product of the device work runs at full float32 whatever
@@ -38,12 +44,10 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from typing import Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .config import BaseConfig
 from .evaluation import RetrievalRecall
@@ -65,7 +69,7 @@ from .utils.misc import (
 )
 from .utils.precision import full_f32
 from .utils.qa_utils import finish_rag_qa, reason_step
-from .utils.timing import StageTimers, device_profile
+from .utils.timing import StageTimers, count, device_profile, span
 
 from .embedding import get_embedding_model
 from .graph import GraphBuilder, compile_device_graph, pick_capacity
@@ -229,11 +233,6 @@ class HippoRAG:
             "fact": None,
             "passage": None,
         }
-        self.all_retrieval_time = 0.0
-        self.rerank_time = 0.0
-        self.ppr_time = 0.0
-        self.embed_time = 0.0
-        self.topk_time = 0.0
 
     # ==================================================================
     # Indexing
@@ -754,6 +753,7 @@ class HippoRAG:
             if q not in self.query_to_embedding["triple"]
             or q not in self.query_to_embedding["passage"]
         ]
+        count("questions", len(todo))
         if not todo:
             return
         fact_embs = self.embedding_model.batch_encode(
@@ -782,25 +782,15 @@ class HippoRAG:
             num_to_retrieve = cfg.retrieval_top_k
         if not self.ready_to_retrieve:
             self.prepare_retrieval_objects()
-        retrieve_start = time.time()
 
-        embed_start = time.time()
-        self.get_query_embeddings(queries)
-        self.embed_time += time.time() - embed_start
-
-        with device_profile(cfg.profile_log_dir, self.device), full_f32():
-            results = self._retrieve_batches(
-                queries, num_to_retrieve, len(self.fact_node_keys),
-                len(self.passage_node_keys), cfg.linking_top_k,
-            )
-
-        self.all_retrieval_time += time.time() - retrieve_start
-        logger.info(
-            "Retrieval: total %.2fs, rerank %.2fs, graph-search %.2fs",
-            self.all_retrieval_time,
-            self.rerank_time,
-            self.ppr_time,
-        )
+        with device_profile(cfg.profile_log_dir, self.device), span("retrieve", questions=len(queries)) as call:
+            with span("retrieve/embed"):
+                self.get_query_embeddings(queries)
+            with full_f32():
+                results = self._retrieve_batches(
+                    queries, num_to_retrieve, len(self.fact_node_keys),
+                    len(self.passage_node_keys), cfg.linking_top_k, call,
+                )
 
         if gold_docs is not None:
             evaluator = RetrievalRecall(self.global_config)
@@ -814,11 +804,8 @@ class HippoRAG:
     def _rerank_candidates(
         self, batch_queries, cand_idx, cand_vals, link_top_k, b_pad, num_facts
     ):
-        """Recognition-memory filtering, fanned out host-side (LLM-bound).
-
-        Returns the elapsed seconds instead of adding to self.rerank_time:
-        with bucket pipelining this runs on worker threads."""
-        rerank_start = time.time()
+        """Recognition-memory filtering, fanned out host-side (LLM-bound);
+        counts the candidates in and the facts kept on the open span."""
         top_idx = np.zeros((b_pad, link_top_k), dtype=np.int32)
         top_mask = np.zeros((b_pad, link_top_k), dtype=np.float32)
         sel_scores = np.zeros((b_pad, link_top_k), dtype=np.float32)
@@ -829,6 +816,7 @@ class HippoRAG:
                 cands = [int(j) for j, v in zip(cand_idx[i], cand_vals[i]) if v > -np.inf]
                 items = [self._fact_tuples[j] for j in cands]
                 rerank_inputs.append((q, items, cands))
+            count("candidates", sum(len(c) for _q, _items, c in rerank_inputs))
 
             def _rerank(args):
                 q, items, cands = args
@@ -843,7 +831,8 @@ class HippoRAG:
                     top_idx[i, k] = fact_row
                     top_mask[i, k] = 1.0
                     sel_scores[i, k] = val_by_row.get(int(fact_row), 0.0)
-        return top_idx, top_mask, sel_scores, batch_top_facts, time.time() - rerank_start
+            count("facts_kept", int(top_mask.sum()))
+        return top_idx, top_mask, sel_scores, batch_top_facts
 
     def _run_bucket_pipeline(self, slices, prep, finish) -> List[QuerySolution]:
         """Run per-bucket (prep -> finish) stages, overlapping when enabled.
@@ -883,65 +872,66 @@ class HippoRAG:
         return results
 
     def _retrieve_batches(
-        self, queries, num_to_retrieve, num_facts, num_passages, link_top_k
+        self, queries, num_to_retrieve, num_facts, num_passages, link_top_k, call=None
     ) -> List[QuerySolution]:
+        """Buckets of ``queries`` through fact scoring, the filter, graph
+        search and result building. ``call`` is the call's open ``retrieve``
+        span, the parent of the stage spans, which may run on worker threads."""
         if self._mesh is not None:
             return self._retrieve_batches_sharded(
-                queries, num_to_retrieve, num_facts, num_passages, link_top_k
+                queries, num_to_retrieve, num_facts, num_passages, link_top_k, call
             )
         cfg = self.global_config
         dev = self.device
         bucket = max(1, cfg.ppr_batch_size)
         sizes = sub_buckets(bucket)
-        slices = [queries[s : s + bucket] for s in range(0, len(queries), bucket)]
+        slices = list(enumerate(queries[s : s + bucket] for s in range(0, len(queries), bucket)))
 
-        def prep(batch_queries):
+        def prep(bucket_slice):
+            bucket_no, batch_queries = bucket_slice
             b_real = len(batch_queries)
             b_pad = next(b for b in sizes if b >= b_real)
 
-            qf = np.zeros((b_pad, self.fact_embeddings.shape[1]), dtype=np.float32)
-            qp = np.zeros_like(qf)
-            for i, q in enumerate(batch_queries):
-                qf[i] = self.query_to_embedding["triple"][q]
-                qp[i] = self.query_to_embedding["passage"][q]
+            with span("retrieve/fact_topk", parent=call, bucket=bucket_no, b_real=b_real, b_pad=b_pad):
+                qf = np.zeros((b_pad, self.fact_embeddings.shape[1]), dtype=np.float32)
+                qp = np.zeros_like(qf)
+                for i, q in enumerate(batch_queries):
+                    qf[i] = self.query_to_embedding["triple"][q]
+                    qp[i] = self.query_to_embedding["passage"][q]
 
-            topk_start = time.time()
-            # DPR passage scores first: no dependency on the kept facts, so
-            # the device computes them while the host reranks
-            dpr_scores = batched_scores(
-                torch.from_numpy(qp).to(dev), self._passage_emb_dev, cfg.compute_dtype
-            )
-            if num_facts > 0:
-                k_cand = min(link_top_k, max(num_facts, 1))
-                cand_vals_dev, cand_idx_dev = fact_topk(
-                    torch.from_numpy(qf).to(dev),
-                    self._fact_emb_dev,
-                    num_facts,
-                    k_cand,
-                    cfg.compute_dtype,
-                    use_pallas=None if cfg.use_pallas_kernels else False,
+                # DPR passage scores first: no dependency on the kept facts, so
+                # the device computes them while the host reranks
+                dpr_scores = batched_scores(
+                    torch.from_numpy(qp).to(dev), self._passage_emb_dev, cfg.compute_dtype
                 )
-                cand_vals = cand_vals_dev.cpu().numpy()
-                cand_idx = cand_idx_dev.cpu().numpy()
-            else:
-                cand_idx = np.zeros((b_pad, 0), dtype=np.int32)
-                cand_vals = np.zeros((b_pad, 0), dtype=np.float32)
-            topk_s = time.time() - topk_start
+                if num_facts > 0:
+                    k_cand = min(link_top_k, max(num_facts, 1))
+                    cand_vals_dev, cand_idx_dev = fact_topk(
+                        torch.from_numpy(qf).to(dev),
+                        self._fact_emb_dev,
+                        num_facts,
+                        k_cand,
+                        cfg.compute_dtype,
+                        use_pallas=None if cfg.use_pallas_kernels else False,
+                    )
+                    cand_vals = cand_vals_dev.cpu().numpy()
+                    cand_idx = cand_idx_dev.cpu().numpy()
+                else:
+                    cand_idx = np.zeros((b_pad, 0), dtype=np.int32)
+                    cand_vals = np.zeros((b_pad, 0), dtype=np.float32)
 
-            top_idx, top_mask, sel_scores, batch_top_facts, rerank_s = self._rerank_candidates(
-                batch_queries, cand_idx, cand_vals, link_top_k, b_pad, num_facts
-            )
-            return (batch_queries, b_real, dpr_scores, top_idx, top_mask,
-                    sel_scores, batch_top_facts, rerank_s, topk_s)
+            with span("retrieve/filter", parent=call, bucket=bucket_no):
+                top_idx, top_mask, sel_scores, batch_top_facts = self._rerank_candidates(
+                    batch_queries, cand_idx, cand_vals, link_top_k, b_pad, num_facts
+                )
+            return (bucket_no, batch_queries, b_real, dpr_scores, top_idx, top_mask,
+                    sel_scores, batch_top_facts)
 
-        def finish(batch_queries, b_real, dpr_scores, top_idx, top_mask,
-                   sel_scores, batch_top_facts, rerank_s, topk_s):
-            self.rerank_time += rerank_s  # accumulated on the main thread
-            self.topk_time += topk_s
-            ppr_start = time.time()
-            # a named range in profiler traces (profile_log_dir): seeds, PPR,
-            # document top-k and the copy of the ranking to the host
-            with record_function("retrieve/graph_search"):
+        def finish(bucket_no, batch_queries, b_real, dpr_scores, top_idx, top_mask,
+                   sel_scores, batch_top_facts):
+            # a named range in profiler traces: seeds, PPR, document top-k
+            # and the copy of the ranking to the host
+            with span("retrieve/graph_search", parent=call, bucket=bucket_no):
                 if num_facts > 0 and self.graph.num_edges > 0:
                     doc_scores = graph_search_batch(
                         self._index_state,
@@ -962,38 +952,39 @@ class HippoRAG:
                     doc_scores = torch.where(
                         valid, min_max_normalize(dpr_scores, where=valid), -torch.inf
                     )
-                order_dev, sorted_dev = rank_documents_topk(doc_scores, num_to_retrieve)
-                order = order_dev.cpu().numpy()
-                sorted_scores = sorted_dev.cpu().numpy()
-            self.ppr_time += time.time() - ppr_start
+                with span("retrieve/doc_topk"):
+                    order_dev, sorted_dev = rank_documents_topk(doc_scores, num_to_retrieve)
+                    order = order_dev.cpu().numpy()
+                    sorted_scores = sorted_dev.cpu().numpy()
 
-            out = []
-            for i in range(b_real):
-                top_n = [
-                    int(j)
-                    for j, v in zip(order[i], sorted_scores[i])
-                    if j < num_passages and v > -np.inf
-                ]
-                out.append(
-                    self._build_result(
-                        batch_queries[i],
-                        top_n,
-                        sorted_scores[i][: len(top_n)],
-                        batch_top_facts[i],
+            with span("retrieve/build_result", parent=call, bucket=bucket_no, results=b_real):
+                out = []
+                for i in range(b_real):
+                    top_n = [
+                        int(j)
+                        for j, v in zip(order[i], sorted_scores[i])
+                        if j < num_passages and v > -np.inf
+                    ]
+                    out.append(
+                        self._build_result(
+                            batch_queries[i],
+                            top_n,
+                            sorted_scores[i][: len(top_n)],
+                            batch_top_facts[i],
+                        )
                     )
-                )
             return out
 
         return self._run_bucket_pipeline(slices, prep, finish)
 
     def _retrieve_batches_sharded(
-        self, queries, num_to_retrieve, num_facts, num_passages, link_top_k
+        self, queries, num_to_retrieve, num_facts, num_passages, link_top_k, call=None
     ) -> List[QuerySolution]:
         """Multi-device retrieval: corpus-sharded scoring with distributed
         top-k, host rerank, seeds on the mesh's first device, sharded
         scatter-free PPR; the ranking is the JAX package's sharded one (PPR
         scores of the real passages, DPR for queries with no fact, a stable
-        descending sort)."""
+        descending sort). The stage spans are the single-device path's."""
         cfg = self.global_config
         dp = cfg.mesh_shape[0]
         corpus = cfg.mesh_shape[1]
@@ -1005,72 +996,76 @@ class HippoRAG:
         real_pids = passage_node_ids[:num_passages].long()
         n_total = corpus * self._sharded_graph.shard_nodes
         n_nodes = self.graph.num_nodes
-        slices = [queries[s : s + bucket] for s in range(0, len(queries), bucket)]
+        slices = list(enumerate(queries[s : s + bucket] for s in range(0, len(queries), bucket)))
 
-        def prep(batch_queries):
+        def prep(bucket_slice):
+            bucket_no, batch_queries = bucket_slice
             b_real = len(batch_queries)
             b_pad = next(b for b in sizes if b >= b_real)
 
-            qf = np.zeros((b_pad, self.fact_embeddings.shape[1]), dtype=np.float32)
-            qp = np.zeros_like(qf)
-            for i, q in enumerate(batch_queries):
-                qf[i] = self.query_to_embedding["triple"][q]
-                qp[i] = self.query_to_embedding["passage"][q]
+            with span("retrieve/fact_topk", parent=call, bucket=bucket_no, b_real=b_real, b_pad=b_pad):
+                qf = np.zeros((b_pad, self.fact_embeddings.shape[1]), dtype=np.float32)
+                qp = np.zeros_like(qf)
+                for i, q in enumerate(batch_queries):
+                    qf[i] = self.query_to_embedding["triple"][q]
+                    qp[i] = self.query_to_embedding["passage"][q]
 
-            topk_start = time.time()
-            if num_facts > 0:
-                _, vals, idx = self._sharded_score(
-                    torch.from_numpy(qf).to(home), self._fact_emb_sharded, num_facts
-                )
-                cand_vals, cand_idx = vals.cpu().numpy(), idx.cpu().numpy()
-            else:
-                cand_idx = np.zeros((b_pad, 0), dtype=np.int32)
-                cand_vals = np.zeros((b_pad, 0), dtype=np.float32)
-            topk_s = time.time() - topk_start
-
-            top_idx, top_mask, sel_scores, batch_top_facts, rerank_s = self._rerank_candidates(
-                batch_queries, cand_idx, cand_vals, link_top_k, b_pad, num_facts
-            )
-            return (batch_queries, b_real, qp, top_idx, top_mask, sel_scores,
-                    batch_top_facts, rerank_s, topk_s)
-
-        def finish(batch_queries, b_real, qp, top_idx, top_mask, sel_scores,
-                   batch_top_facts, rerank_s, topk_s):
-            self.rerank_time += rerank_s  # accumulated on the main thread
-            self.topk_time += topk_s
-            ppr_start = time.time()
-            with record_function("retrieve/graph_search"):
-                norm_p = self._sharded_norm_scores(
-                    torch.from_numpy(qp).to(home), self._passage_emb_sharded, num_passages
-                )
-                dpr_norm_dev = norm_p[:, :num_passages]
-                dpr_norm = dpr_norm_dev.cpu().numpy()
-                has_facts = top_mask.sum(axis=1) > 0
-                if num_facts > 0 and self.graph.num_edges > 0:
-                    reset = build_reset_batch(
-                        torch.from_numpy(sel_scores).to(home), torch.from_numpy(top_idx).to(home),
-                        torch.from_numpy(top_mask).to(home), dpr_norm_dev,
-                        fact_subj, fact_obj, chunk_counts, real_pids, n_nodes,
-                        n_total=n_total, link_top_k=link_top_k,
-                        passage_node_weight=cfg.passage_node_weight,
+                if num_facts > 0:
+                    _, vals, idx = self._sharded_score(
+                        torch.from_numpy(qf).to(home), self._fact_emb_sharded, num_facts
                     )
-                    ranks = self._sharded_ppr(self._sharded_graph_dev, reset)
-                    # passage columns only: [B, P] to the host, not [B, N_total]
-                    ranks = ranks[:, real_pids].cpu().numpy()
-                    doc_scores = np.where(has_facts[:, None], ranks, dpr_norm)
+                    cand_vals, cand_idx = vals.cpu().numpy(), idx.cpu().numpy()
                 else:
-                    doc_scores = dpr_norm
-                order = np.argsort(-doc_scores, axis=1, kind="stable")
-            self.ppr_time += time.time() - ppr_start
+                    cand_idx = np.zeros((b_pad, 0), dtype=np.int32)
+                    cand_vals = np.zeros((b_pad, 0), dtype=np.float32)
 
-            out = []
-            for i in range(b_real):
-                top_n = order[i][:num_to_retrieve]
-                out.append(
-                    self._build_result(
-                        batch_queries[i], top_n, doc_scores[i][top_n], batch_top_facts[i],
-                    )
+            with span("retrieve/filter", parent=call, bucket=bucket_no):
+                top_idx, top_mask, sel_scores, batch_top_facts = self._rerank_candidates(
+                    batch_queries, cand_idx, cand_vals, link_top_k, b_pad, num_facts
                 )
+            return (bucket_no, batch_queries, b_real, qp, top_idx, top_mask, sel_scores,
+                    batch_top_facts)
+
+        def finish(bucket_no, batch_queries, b_real, qp, top_idx, top_mask, sel_scores,
+                   batch_top_facts):
+            with span("retrieve/graph_search", parent=call, bucket=bucket_no):
+                with span("retrieve/seeds"):
+                    norm_p = self._sharded_norm_scores(
+                        torch.from_numpy(qp).to(home), self._passage_emb_sharded, num_passages
+                    )
+                    dpr_norm_dev = norm_p[:, :num_passages]
+                    dpr_norm = dpr_norm_dev.cpu().numpy()
+                    has_facts = top_mask.sum(axis=1) > 0
+                    search = num_facts > 0 and self.graph.num_edges > 0
+                    if search:
+                        reset = build_reset_batch(
+                            torch.from_numpy(sel_scores).to(home), torch.from_numpy(top_idx).to(home),
+                            torch.from_numpy(top_mask).to(home), dpr_norm_dev,
+                            fact_subj, fact_obj, chunk_counts, real_pids, n_nodes,
+                            n_total=n_total, link_top_k=link_top_k,
+                            passage_node_weight=cfg.passage_node_weight,
+                        )
+                if search:
+                    with span("retrieve/ppr"):
+                        ranks = self._sharded_ppr(self._sharded_graph_dev, reset)
+                with span("retrieve/doc_topk"):
+                    if search:
+                        # passage columns only: [B, P] to the host, not [B, N_total]
+                        ranks = ranks[:, real_pids].cpu().numpy()
+                        doc_scores = np.where(has_facts[:, None], ranks, dpr_norm)
+                    else:
+                        doc_scores = dpr_norm
+                    order = np.argsort(-doc_scores, axis=1, kind="stable")
+
+            with span("retrieve/build_result", parent=call, bucket=bucket_no, results=b_real):
+                out = []
+                for i in range(b_real):
+                    top_n = order[i][:num_to_retrieve]
+                    out.append(
+                        self._build_result(
+                            batch_queries[i], top_n, doc_scores[i][top_n], batch_top_facts[i],
+                        )
+                    )
             return out
 
         return self._run_bucket_pipeline(slices, prep, finish)
@@ -1136,24 +1131,24 @@ class HippoRAG:
             num_to_retrieve = cfg.retrieval_top_k
         if not self.ready_to_retrieve:
             self.prepare_retrieval_objects()
-        retrieve_start = time.time()
 
-        self.get_query_embeddings(queries)
-        num_passages = len(self.passage_node_keys)
-        k = min(num_to_retrieve, num_passages)
-        bucket = max(1, cfg.ppr_batch_size)
-        sizes = sub_buckets(bucket)
-        results = []
-        for off in range(0, len(queries), bucket):
-            part = queries[off : off + bucket]
-            qp = np.zeros((next(b for b in sizes if b >= len(part)), self.passage_embeddings.shape[1]),
-                          dtype=np.float32)
-            for i, q in enumerate(part):
-                qp[i] = self.query_to_embedding["passage"][q]
-            scores = self._dpr_normalized_scores(qp, num_passages)[: len(part), :num_passages]
-            vals, order = (t.cpu().numpy() for t in topk_lower_index(scores, k))
-            results += [self._build_result(q, order[i], vals[i], []) for i, q in enumerate(part)]
-        self.all_retrieval_time += time.time() - retrieve_start
+        with span("retrieve", questions=len(queries), entry="retrieve_dpr"):
+            with span("retrieve/embed"):
+                self.get_query_embeddings(queries)
+            num_passages = len(self.passage_node_keys)
+            k = min(num_to_retrieve, num_passages)
+            bucket = max(1, cfg.ppr_batch_size)
+            sizes = sub_buckets(bucket)
+            results = []
+            for off in range(0, len(queries), bucket):
+                part = queries[off : off + bucket]
+                qp = np.zeros((next(b for b in sizes if b >= len(part)), self.passage_embeddings.shape[1]),
+                              dtype=np.float32)
+                for i, q in enumerate(part):
+                    qp[i] = self.query_to_embedding["passage"][q]
+                scores = self._dpr_normalized_scores(qp, num_passages)[: len(part), :num_passages]
+                vals, order = (t.cpu().numpy() for t in topk_lower_index(scores, k))
+                results += [self._build_result(q, order[i], vals[i], []) for i, q in enumerate(part)]
 
         if gold_docs is not None:
             evaluator = RetrievalRecall(self.global_config)

@@ -23,6 +23,7 @@ import torch
 
 from ..ops.pagerank import COOGraph, ELLGraph, batched_ppr, batched_ppr_ell
 from ..ops.scoring import min_max_normalize, topk_lower_index
+from ..utils.timing import span
 
 
 class RetrievalIndex(NamedTuple):
@@ -144,23 +145,27 @@ def graph_search_batch(
     ``ppr_edge_chunks`` streams the COO operator's edge list in that many
     slices (the ELL operator ignores it). With ``return_iters=True``
     returns ``(scores, iters)``, ``iters`` being the per-query PPR
-    iteration counts.
+    iteration counts. The seeds and the PPR solve are the spans
+    ``retrieve/seeds`` and ``retrieve/ppr``; the solver counts its tiles
+    and their iterations on the latter.
     """
-    reset, dpr_norm, p_valid = seed_reset_batch(
-        index, sel_scores, top_fact_idx, top_fact_mask, dpr_scores,
-        link_top_k, passage_node_weight,
-    )
-    if isinstance(index.graph, ELLGraph):
-        ppr, iters = batched_ppr_ell(
-            index.graph, reset, damping=damping, max_iters=ppr_max_iters,
-            tol=ppr_tol, compute_dtype=ppr_dtype, return_iters=True,
+    with span("retrieve/seeds"):
+        reset, dpr_norm, p_valid = seed_reset_batch(
+            index, sel_scores, top_fact_idx, top_fact_mask, dpr_scores,
+            link_top_k, passage_node_weight,
         )
-    else:
-        ppr, iters = batched_ppr(
-            index.graph, reset, damping=damping, max_iters=ppr_max_iters,
-            tol=ppr_tol, compute_dtype=ppr_dtype, edge_chunks=ppr_edge_chunks,
-            return_iters=True,
-        )
+    with span("retrieve/ppr"):
+        if isinstance(index.graph, ELLGraph):
+            ppr, iters = batched_ppr_ell(
+                index.graph, reset, damping=damping, max_iters=ppr_max_iters,
+                tol=ppr_tol, compute_dtype=ppr_dtype, return_iters=True,
+            )
+        else:
+            ppr, iters = batched_ppr(
+                index.graph, reset, damping=damping, max_iters=ppr_max_iters,
+                tol=ppr_tol, compute_dtype=ppr_dtype, edge_chunks=ppr_edge_chunks,
+                return_iters=True,
+            )
     ppr_doc_scores = ppr[:, index.passage_node_ids.long()]  # [B, P_pad]
 
     # DPR fallback for queries whose fact set is empty after reranking

@@ -34,6 +34,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.timing import count
+
 
 class COOGraph(NamedTuple):
     """Normalized transition operator in COO form: host NumPy arrays as
@@ -496,6 +498,12 @@ def _stalled2(err, err_prev, err_prev2, tol, damping) -> bool:
     )
 
 
+def _count_tile(iterations: int) -> None:
+    """Count one solved column tile and its iterations on the open span."""
+    count("tiles")
+    count("iterations", iterations)
+
+
 # Batch-axis tile: 128 query columns per solve, each tile with its own
 # early-exit loop so one slow-converging query only delays its own tile.
 # Kept equal to the JAX package's tile so per-tile iteration counts compare.
@@ -626,6 +634,7 @@ def batched_ppr_ell(
                 p_slot, c = p_next, c_next
                 err_prev2, err_prev, err = err_prev, err, err_next
                 it += 1
+        _count_tile(it)
         it_row = torch.full((1, r_slot.shape[1]), it, dtype=torch.int32, device=dev)
         return p_slot, c, it_row
 
@@ -757,6 +766,7 @@ def batched_ppr(
             p_T = p_next
             err_prev2, err_prev, err = err_prev, err, err_next
             it += 1
+        _count_tile(it)
         return p_T, torch.full((1, r_T.shape[1]), it, dtype=torch.int32, device=dev)
 
     p_T, it_row = tile_columns(_solve, r_T, r_T.new_zeros(1, r_T.shape[1]))

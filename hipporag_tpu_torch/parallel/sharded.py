@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ops.pagerank import (
-    COOGraph, _bucket_reduce, _edge_chunks, _spmv_T, _stalled2, hub_row_map,
+    COOGraph, _bucket_reduce, _count_tile, _edge_chunks, _spmv_T, _stalled2, hub_row_map,
     pack_ell_rows, pack_hub_chunks, tile_columns, validate_symmetric_operator,
 )
 from ..ops.scoring import batched_scores, topk_lower_index
@@ -194,6 +194,7 @@ def _power_loop(step, p, c, tol: float, max_iters: int, damping: float):
         p, c, errs = step(p, c)
         err_prev2, err_prev, err = err_prev, err, _err_item(errs)
         it += 1
+    _count_tile(it)
     return p, c, it
 
 

@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -26,7 +25,7 @@ from .utils.logging import get_logger
 from .utils.misc import Chunk, QuerySolution
 from .utils.precision import full_f32
 from .utils.qa_utils import finish_rag_qa
-from .utils.timing import StageTimers
+from .utils.timing import StageTimers, span
 
 from .embedding import get_embedding_model
 from .ops.scoring import dense_topk
@@ -85,7 +84,6 @@ class StandardRAG:
         self.timers = StageTimers()
         self.ready_to_retrieve = False
         self.query_to_embedding: Dict[str, np.ndarray] = {}
-        self.all_retrieval_time = 0.0
 
     # ------------------------------------------------------------------
     def index(self, docs: List[Union[str, Chunk]]):
@@ -136,8 +134,6 @@ class StandardRAG:
             num_to_retrieve = cfg.retrieval_top_k
         if not self.ready_to_retrieve:
             self.prepare_retrieval_objects()
-        retrieve_start = time.time()
-
         if not self.passage_node_keys:
             # empty index: empty but usable results, as HippoRAG gives
             results = [QuerySolution(question=q, docs=[], doc_scores=np.zeros(0)) for q in queries]
@@ -148,34 +144,34 @@ class StandardRAG:
                 return results, overall
             return results
 
-        todo = [q for q in queries if q not in self.query_to_embedding]
-        if todo:
-            embs = self.embedding_model.batch_encode(
-                todo, instruction=get_query_instruction("query_to_passage"), norm=True
-            )
-            if embs.ndim == 1:
-                embs = embs[None]
-            for q, e in zip(todo, embs):
-                self.query_to_embedding[q] = e
-
-        n_passages = len(self.passage_node_keys)
-        with full_f32():
-            vals, order = dense_topk(
-                [self.query_to_embedding[q] for q in queries], self._passage_emb_dev, n_passages,
-                min(num_to_retrieve, n_passages), cfg.ppr_batch_size, cfg.compute_dtype,
-            )
-        results = []
-        for i, q in enumerate(queries):
-            keys = [self.passage_node_keys[j] for j in order[i]]
-            results.append(
-                QuerySolution(
-                    question=q,
-                    docs=[self.chunk_embedding_store.get_row(key)["content"] for key in keys],
-                    doc_scores=vals[i].astype(np.float64),
-                    doc_metadata=[dict(self.chunk_metadata.get(key, {})) for key in keys],
+        with span("retrieve", questions=len(queries)):
+            todo = [q for q in queries if q not in self.query_to_embedding]
+            if todo:
+                embs = self.embedding_model.batch_encode(
+                    todo, instruction=get_query_instruction("query_to_passage"), norm=True
                 )
-            )
-        self.all_retrieval_time += time.time() - retrieve_start
+                if embs.ndim == 1:
+                    embs = embs[None]
+                for q, e in zip(todo, embs):
+                    self.query_to_embedding[q] = e
+
+            n_passages = len(self.passage_node_keys)
+            with full_f32():
+                vals, order = dense_topk(
+                    [self.query_to_embedding[q] for q in queries], self._passage_emb_dev, n_passages,
+                    min(num_to_retrieve, n_passages), cfg.ppr_batch_size, cfg.compute_dtype,
+                )
+            results = []
+            for i, q in enumerate(queries):
+                keys = [self.passage_node_keys[j] for j in order[i]]
+                results.append(
+                    QuerySolution(
+                        question=q,
+                        docs=[self.chunk_embedding_store.get_row(key)["content"] for key in keys],
+                        doc_scores=vals[i].astype(np.float64),
+                        doc_metadata=[dict(self.chunk_metadata.get(key, {})) for key in keys],
+                    )
+                )
 
         if gold_docs is not None:
             evaluator = RetrievalRecall(cfg)

@@ -1,0 +1,7 @@
+"""Mean host duration of the retrieve/fact_topk span per bucket in the profiled call, ms."""
+
+from perfbench.spans import mean_ms
+
+
+def read(ctx):
+    return mean_ms(ctx, "retrieve/fact_topk")
