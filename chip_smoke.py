@@ -6,7 +6,7 @@
 from the repository root, on a machine with a CUDA GPU, nvcc and PyTorch
 built for CUDA (no JAX needed). It builds the hand-written CUDA kernel from
 ``hipporag_tpu_torch/csrc`` and the native graph core from
-``hipporag_tpu_torch/graph/native`` and runs nine phases; any failure ends
+``hipporag_tpu_torch/graph/native`` and runs ten phases; any failure ends
 the run with a non-zero exit:
 
 1. Kernel vs plain: ``fused_score_topk`` (CUDA pass A) against
@@ -70,8 +70,8 @@ the run with a non-zero exit:
    peak memory; (c) ``HippoRAG(ppr_format="coo")`` on the sample corpus in
    float32 and bfloat16, held to ``tests/fixtures/torch_port_coo_expected.json``;
    on phase 6's live index, (e) one 128-query ``retrieve`` with
-   ``profile_log_dir`` set, its trace read back for K1's kernel, the PPR
-   gathers, the device idle share and graph search's device/host split, and
+   ``profile_log_dir`` set, its trace read back for K1's kernel, K2's
+   kernels (the PageRank steps), the device idle share and graph search's device/host split, and
    (d) the index re-prepared as COO: its rankings equal the ELL path's and
    both hold to the native float64 serial solver (``exact_rank_check``),
    with the NumPy twin beside them; (f) 100 AdamW steps of the adapter at
@@ -101,6 +101,20 @@ the run with a non-zero exit:
    ``hotpot``, ``musique`` and ``replay`` run when their corpus
    (``bench_sections.corpus_path()``) exists and print a skip line when it
    does not.
+10. K2, the ELL PageRank step kernel (``csrc/ell_ppr_step.cu``), on a
+   small hub-heavy graph (every bucket width up to 256, hubs of several
+   512-wide chunk rows, zero-in-degree nodes) and on the benchmark's graph
+   (``perfbench``'s ``nvembed2-musique`` deployment): one step against the
+   plain torch step at b = 8, 32, 104, 128 with f32 and bf16 gathers,
+   within a stated bound, the kernel's residual equal to the max over its
+   own outputs, reruns bit-identical; whole power and Chebyshev solves with
+   the per-tile iteration counts of the same solves on the CPU (the torch
+   step) and no torch SpMV, the ``retrieve/ppr`` counts
+   ``kernel_iterations`` equal to ``iterations``; then the kernel's and the
+   torch step's times at b = 128. In phases 2-9, each path that ranks by
+   PageRank (the phase-2 bucket, 3, 5, 6's served window, 7c-e, 7g, 9's
+   multihop) is held on its own to its ``retrieve/ppr`` spans: K2 launched
+   once per iteration on the ELL route, never on COO (``k2_path``).
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Neither JAX nor ``hipporag_tpu`` may be
@@ -165,7 +179,8 @@ from hipporag_tpu_torch.parallel import (  # noqa: E402
     sharded_ell_counters,
 )
 
-from hipporag_tpu_torch.utils.timing import dropped_spans, recording  # noqa: E402
+from hipporag_tpu_torch.utils.timing import dropped_spans, recording, span  # noqa: E402
+from hipporag_tpu_torch.utils.timing import spans as logged_spans  # noqa: E402
 
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_sample_expected.json")
 ENCODER_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_encoder_768x12.npz")
@@ -255,6 +270,12 @@ SHARDED_ADAPTER_STEPS, SHARDED_ADAPTER_RTOL = 5, 1e-4
 BF16_ROUTE_TIE_ATOL, BF16_ROUTE_NORM_ATOL = 2e-6, 1e-6
 # phase 9: the quality sections that read the 2WikiMultihopQA corpus
 CORPUS_SECTIONS = ("2wiki", "hotpot", "musique", "replay")
+# phase 10: K2 at the column widths of the served path and of the benchmark's
+# calls (1,000 questions: 7 buckets of 128 and one of 104), on the
+# benchmark's graph at the seed its configuration file records
+K2_WIDTHS = (8, 32, 104, 128)
+K2_BENCH_SEED = 2147483653
+PASSAGE_WEIGHT = 0.05
 
 
 def scan_delta(q, keys):
@@ -303,6 +324,43 @@ def time_ms(fn, reps: int = 5) -> float:
 
 def peak_memory() -> int:
     return torch.cuda.max_memory_allocated()
+
+
+# K2's launches and PageRank iterations on each path that solves (k2_path)
+K2_PATHS: dict = {}
+
+
+def k2_reset() -> int:
+    """Start counting one path's K2 launches: zero the counter and return
+    the time after which the path's ``retrieve/ppr`` spans start (the path
+    runs inside ``recording()``)."""
+    from hipporag_tpu_torch.ops import pagerank as ell_ops
+
+    if torch.cuda.is_available():
+        sync()
+    ell_ops.ELL_STEP_LAUNCHES.reset()
+    return time.time_ns()
+
+
+def k2_path(name: str, since_ns: int, kernel: bool = True) -> None:
+    """Hold the K2 launches since ``k2_reset`` to the ``retrieve/ppr`` spans
+    that started after it: on the card's ELL route each iteration is one
+    launch and the span counts it as ``kernel_iterations``; a COO path, or
+    one on the CPU (``kernel=False``), launches none. Records the path in
+    ``K2_PATHS``."""
+    from hipporag_tpu_torch.ops import pagerank as ell_ops
+
+    if torch.cuda.is_available():
+        sync()
+    ppr = [s for s in logged_spans() if s.name == "retrieve/ppr" and s.start_ns >= since_ns]
+    iters = sum(s.attrs.get("iterations", 0) for s in ppr)
+    kernel_iters = sum(s.attrs.get("kernel_iterations", 0) for s in ppr)
+    launches = ell_ops.ELL_STEP_LAUNCHES.count
+    want = iters if kernel else 0
+    check(iters > 0 and launches == kernel_iters == want,
+          f"{name}: {launches} K2 launches and {kernel_iters} kernel iterations over {len(ppr)} PageRank "
+          f"solves of {iters} iterations; want {want} of each")
+    K2_PATHS[name] = {"launches": launches, "iterations": iters, "solves": len(ppr)}
 
 
 def log(msg: str) -> None:
@@ -654,7 +712,10 @@ def phase2(device, sizes, seed=0):
 
     torch.cuda.reset_peak_memory_stats()
     fused_topk.SCAN_LAUNCHES.reset()
-    cand_vals, cand_idx, doc_scores, iters, order, vals, stage = run_bucket(bucket)
+    k2_since = k2_reset()
+    with recording():
+        cand_vals, cand_idx, doc_scores, iters, order, vals, stage = run_bucket(bucket)
+    k2_path("phase2_bucket", k2_since)
     launches = fused_topk.SCAN_LAUNCHES.count
     check(launches > 0, "phase 2: the fused kernel was not launched")
     peak = peak_memory()
@@ -708,10 +769,13 @@ def phase3(device, compute_dtype="float32"):
         rag = HippoRAG(cfg, device=device)
         rag.index(docs)
         fused_topk.SCAN_LAUNCHES.reset()
+        k2_since = k2_reset()
         t0 = time.perf_counter()
-        sols = rag.retrieve(queries)
+        with recording():
+            sols = rag.retrieve(queries)
         sync()
         wall = time.perf_counter() - t0
+        k2_path(f"phase3_{compute_dtype}", k2_since)
         launches = fused_topk.SCAN_LAUNCHES.count
         check(launches > 0, f"phase 3 ({compute_dtype}): retrieve did not launch the fused kernel")
         # a caller's TF32 setting must not reach the port's products
@@ -928,13 +992,18 @@ def _rag_qa(out):
 def entry_point_record(hipporag, standard, data, counter=None):
     """Every entry point of phase 5 on ``data`` (docs, queries, gold docs,
     gold answers), in the fixture's form; and the kernel launches of
-    ``hipporag.retrieve`` when ``counter`` is given."""
+    ``hipporag.retrieve`` when ``counter`` is given (K2's then checked as
+    path ``phase5_retrieve``)."""
     docs, queries, gold_docs, gold_answers = data
     hipporag.index(docs)
     if counter is not None:
         counter.reset()
-    retrieved = hipporag.retrieve(queries)
+        k2_since = k2_reset()
+    with recording():
+        retrieved = hipporag.retrieve(queries)
     launches = counter.count if counter is not None else None
+    if counter is not None:
+        k2_path("phase5_retrieve", k2_since)
     order, scores = hipporag.dense_passage_retrieval(queries[0])
     record = {
         "hipporag.retrieve": _solutions(retrieved),
@@ -1338,6 +1407,7 @@ def phase6(device, sizes=None, seed=0, served=None):
         traffic = serve_traffic(corpus, sizes, hot)
 
         fused_topk.SCAN_LAUNCHES.reset()
+        k2_since = k2_reset()
         svc = RetrievalService(rag, max_wait_ms=SERVE_MAX_WAIT_MS, response_cache_size=SERVE_CACHE)
         try:
             server = make_native_server(svc, port=0, num_workers=2 * sizes["clients"])
@@ -1449,6 +1519,7 @@ def phase6(device, sizes=None, seed=0, served=None):
             svc.close()
         sync()
         launches = fused_topk.SCAN_LAUNCHES.count
+        k2_path("phase6_serving", k2_since)
         peak = peak_memory()
         check(launches > 0, "phase 6: serving did not launch the fused kernel")
         for lane in ("retrieve", "qa"):
@@ -1625,6 +1696,7 @@ def trace_summary(path, annotation="retrieve/graph_search"):
         "graph_search_device_busy_ms": range_dev / 1e3,
         "graph_search_device_share": range_dev / range_host if range_host > 0 else None,
         "k1_kernels": [k for k in kernels if "scan_kernel" in k],
+        "k2_kernels": [k[:80] for k in kernels if "items_kernel" in k or "combine_kernel" in k],
         "gather_kernels": [k[:80] for k in kernels if "gather" in k or "index_elementwise" in k or "indexSelect" in k],
         "gather_ops": [o for o in ops if o in ("aten::index", "aten::index_select")],
     }
@@ -1667,17 +1739,20 @@ def phase7_served(rag, parity):
     shutil.rmtree(PROFILE_DIR, ignore_errors=True)
     cfg.profile_log_dir = PROFILE_DIR
     fused_topk.SCAN_LAUNCHES.reset()
+    k2_since = k2_reset()
     t0 = time.perf_counter()
-    rag.retrieve(parity[:PROFILE_QUERIES], num_to_retrieve=cfg.retrieval_top_k)
+    with recording():
+        rag.retrieve(parity[:PROFILE_QUERIES], num_to_retrieve=cfg.retrieval_top_k)
     out["profiled_retrieve_s"] = time.perf_counter() - t0
     out["profiled_k1_launches"] = fused_topk.SCAN_LAUNCHES.count
+    k2_path("phase7e_profiled_retrieve", k2_since)
     cfg.profile_log_dir = None
     traces = glob.glob(os.path.join(PROFILE_DIR, "trace-*.json"))
     check(len(traces) == 1, f"phase 7e: expected one trace in {PROFILE_DIR}, found {traces}")
     prof = out["profile"] = {"trace": os.path.relpath(traces[0], ROOT), **trace_summary(traces[0])}
     check(prof["device_activities"] > 0, "phase 7e: the trace holds no device activity")
     check(bool(prof["k1_kernels"]), "phase 7e: the trace does not name K1's kernel")
-    check(bool(prof["gather_kernels"]) and bool(prof["gather_ops"]), "phase 7e: the trace does not name the PPR gathers")
+    check(bool(prof["k2_kernels"]), "phase 7e: the trace does not name K2's kernels (the PageRank steps)")
     check(prof["graph_search_ranges"] > 0, "phase 7e: no retrieve/graph_search range in the trace")
     log("phase 7e: profile_log_dir over one retrieve of "
         f"{PROFILE_QUERIES} queries on the served index: " + json.dumps(prof))
@@ -1692,10 +1767,13 @@ def phase7_served(rag, parity):
     check(type(graph) is COOGraph and graph.src.device.type == torch.device(rag.device).type,
           "phase 7d: the served index is not a COO operator on the card")
     fused_topk.SCAN_LAUNCHES.reset()
+    k2_since = k2_reset()
     t0 = time.perf_counter()
-    coo_sols = rag.retrieve(parity, num_to_retrieve=cfg.retrieval_top_k)
+    with recording():
+        coo_sols = rag.retrieve(parity, num_to_retrieve=cfg.retrieval_top_k)
     out["coo_retrieve_s"] = time.perf_counter() - t0
     out["coo_k1_launches"] = fused_topk.SCAN_LAUNCHES.count
+    k2_path("phase7d_served_coo", k2_since, kernel=False)
     check(out["coo_k1_launches"] > 0, "phase 7d: the COO retrieve did not launch the fused kernel")
     out["coo_vs_ell_trades"] = near_tie_trades(coo_sols, ell_sols, PARITY_ATOL, "phase 7d COO vs ELL")
 
@@ -1735,8 +1813,11 @@ def phase7_sample(device):
             cfg = BaseConfig(save_dir=os.path.join(tmp, dtype), compute_dtype=dtype, **fixture["config"])
             rag = HippoRAG(cfg, device=device)
             fused_topk.SCAN_LAUNCHES.reset()
-            got = coo_record(rag, data)
+            k2_since = k2_reset()
+            with recording():
+                got = coo_record(rag, data)
             launches = fused_topk.SCAN_LAUNCHES.count
+            k2_path(f"phase7c_coo_sample_{dtype}", k2_since, kernel=False)
             graph = rag._index_state.graph
             check(type(graph) is COOGraph and graph.src.device.type == torch.device(device).type,
                   f"phase 7c ({dtype}): not a COO operator on the card")
@@ -1819,10 +1900,13 @@ def phase7_multihop(device):
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         fused_topk.SCAN_LAUNCHES.reset()
+        k2_since = k2_reset()
         t0 = time.perf_counter()
-        got = run_multihop_eval(save_dir=tmp, device=device)
+        with recording():
+            got = run_multihop_eval(save_dir=tmp, device=device)
         wall = time.perf_counter() - t0
         launches = fused_topk.SCAN_LAUNCHES.count
+        k2_path("phase7g_multihop", k2_since)
     check("multihop3_error" not in got, f"phase 7g: {got.get('multihop3_error')}")
     check(got == want, f"phase 7g: {got} != the JAX package's {want}")
     check(launches > 0, "phase 7g: the multihop runs did not launch the fused kernel")
@@ -2048,10 +2132,13 @@ def phase9_sections(device):
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         fused_topk.SCAN_LAUNCHES.reset()
+        k2_since = k2_reset()
         t0 = time.perf_counter()
-        got = bench_sections.run_section("multihop", os.path.join(tmp, "multihop"), device=device)
+        with recording():
+            got = bench_sections.run_section("multihop", os.path.join(tmp, "multihop"), device=device)
         wall = time.perf_counter() - t0
         launches = fused_topk.SCAN_LAUNCHES.count
+        k2_path("phase9_multihop_section", k2_since, kernel=torch.device(device).type == "cuda")
         check("multihop3_error" not in got, f"phase 9 multihop: {got.get('multihop3_error')}")
         check(got == want, f"phase 9 multihop: {got} != the JAX package's {want}")
         check(launches > 0, "phase 9 multihop: the section did not launch the fused kernel")
@@ -2068,6 +2155,280 @@ def phase9_sections(device):
             result = bench_sections.run_section(section, os.path.join(tmp, section), device=device)
             out[section] = {"result": result, "wall_s": time.perf_counter() - t0}
             log(f"phase 9: section {section}: " + json.dumps(out[section], default=str))
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 10: K2, the ELL PageRank step kernel
+# ----------------------------------------------------------------------
+def hub_heavy_graph(nodes=3_000, hubs=3, hub_degree=1_500, isolated=10, seed=0):
+    """A graph with every bucket width up to 256, hubs spanning several
+    512-wide chunk rows, zero-in-degree nodes and capacity padding rows."""
+    rng = np.random.default_rng(seed)
+    src, dst = [], []
+    for v in range(nodes):
+        deg = hub_degree if v < hubs else int(rng.integers(1, 300 if v % 10 == 0 else 17))
+        nb = rng.choice(nodes, size=deg, replace=False)
+        nb = nb[nb != v]
+        src.append(np.full(len(nb), v))
+        dst.append(nb)
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    w = rng.uniform(0.1, 1.0, len(src)).astype(np.float32)
+    n = nodes + isolated
+    cap = -(-(n + 1) // 128) * 128
+    s2, d2, w2, dang = normalize_symmetric_coo(src, dst, w, n, cap)
+    return ell_from_coo(s2, d2, w2, dang, n, cap)
+
+
+def k2_resets(rng, graph, batch, passage_nodes=None):
+    """[batch, N_pad] resets: 5 weighted seeds per query, plus passage seeds
+    (0.05 x a uniform DPR score on every passage) where the graph has them."""
+    n = int(graph.num_nodes)
+    reset = np.zeros((batch, graph.local_inv.shape[0]), np.float32)
+    for i in range(batch):
+        reset[i, rng.choice(n, 5, replace=False)] = rng.uniform(0.1, 1.0, 5)
+    if passage_nodes is not None:
+        reset[:, passage_nodes] += PASSAGE_WEIGHT * rng.uniform(0.0, 1.0, (batch, len(passage_nodes)))
+    return torch.from_numpy(reset).to(graph.slot_to_node.device)
+
+
+def k2_slot_state(graph, reset, ld):
+    """A tile's slot-space reset [S, ld] (zero columns past the batch) and R_d."""
+    from hipporag_tpu_torch.ops import pagerank as ell_ops
+
+    r = ell_ops._normalized_reset(reset, graph.num_nodes.to(reset.device)).T.contiguous()
+    r_slot = torch.cat([r, r.new_zeros(1, r.shape[1])])[graph.slot_to_node]
+    rdm = (r * graph.dangling[:, None]).sum(0)
+    return torch.nn.functional.pad(r_slot, (0, ld - r.shape[1])).contiguous(), rdm.contiguous()
+
+
+def k2_torch_stepper(graph, gather_dtype):
+    """The plain torch step on the card (``_spmv_ell`` and the affine update of
+    ``batched_ppr_ell``), as ``fn(p, r, c, rdm, b) -> (p_next [S, b], c_next)``
+    over the first b columns of [S, ld] states; the hub row map and d are
+    made once, as a solve makes them."""
+    from hipporag_tpu_torch.ops import pagerank as ell_ops
+
+    hub_rows = ell_ops._hub_rows(graph)
+    d = torch.tensor(DAMPING, dtype=torch.float32, device=graph.slot_to_node.device)
+
+    def step(p, r, c, rdm, b):
+        y = ell_ops._spmv_ell(graph, p[:, :b].contiguous(), hub_rows, gather_dtype)
+        dm = c[None, :b] * rdm[None, :b]
+        return (1.0 - d) * r[:, :b] + d * (y + dm * r[:, :b]), ((1.0 - d) + d * dm)[0]
+
+    return step
+
+
+def k2_step_bound(plan, graph, p, b, gather_dtype):
+    """Elementwise bound on |kernel - torch| of one step: both sum a slot's
+    n non-negative terms in float32 in some order, each within
+    (n - 1) 2^-24 of the exact sum y (float64 here), d y enters p_next, and
+    the affine update adds a few roundings of p_next's size."""
+    ent = plan.ent.long()
+    items = plan.items.long()
+    lens = items[:, 2]
+    slot_of_entry = torch.zeros(ent.shape[0], dtype=torch.long, device=p.device)
+    order = torch.repeat_interleave(items[:, 1] - (torch.cumsum(lens, 0) - lens), lens) + torch.arange(
+        int(lens.sum()), device=p.device)
+    slot_of_entry[order] = torch.repeat_interleave(items[:, 0], lens)
+    w = ent[:, 1].int().view(torch.float32).double()
+    src = p[:, :b].double()
+    if gather_dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16).double()
+        src = p[:, :b].to(torch.bfloat16).double()
+    y = torch.zeros(p.shape[0], b, dtype=torch.float64, device=p.device)
+    y.index_add_(0, slot_of_entry, src[ent[:, 0]] * w[:, None])
+    n = torch.bincount(slot_of_entry, minlength=p.shape[0]).double()[:, None]
+    return DAMPING * 2 * torch.clamp_min(n - 1, 0) * 2.0**-24 * y, y
+
+
+def k2_check_step(tag, graph, plan, reset, b, gather_dtype):
+    """One kernel step against the torch step at b columns; the kernel's own
+    residual, bf16 copy and determinism. Returns max |kernel - torch| and the
+    largest share of the stated bound it used."""
+    from hipporag_tpu_torch.ops import pagerank as ell_ops
+
+    ld = -(-b // 4) * 4
+    r, rdm = k2_slot_state(graph, reset[:b], ld)
+    # a state a few steps in: the reset moved by two torch steps
+    p, c = r, torch.ones(b, device=r.device)
+    f32_step = k2_torch_stepper(graph, None)
+    for _ in range(2):
+        p_b, c = f32_step(p, r, c, rdm, b)
+        p = torch.nn.functional.pad(p_b, (0, ld - b)).contiguous()
+    bf16 = gather_dtype == torch.bfloat16
+    pg = p.to(torch.bfloat16) if bf16 else p
+
+    def run():
+        out = (torch.empty_like(p), torch.empty_like(pg) if bf16 else None, torch.empty_like(c),
+               p.new_empty(plan.n_parts, ld), p.new_empty(1))
+        ell_ops.ell_step(plan, pg, p, r, c, rdm, DAMPING, out[0], out[1], out[2], out[3], out[4])
+        sync()
+        return out
+
+    first, second = run(), run()
+    for a, z, name in zip(first, second, ("p_next", "pg_next", "c_next", "partials", "resid")):
+        if a is not None and name != "partials":
+            check(torch.equal(a, z), f"phase 10 ({tag}, b={b}): two runs give different {name}")
+    p_next, pg_next, c_next, _, resid = first
+    want = torch.maximum((p_next[:, :b] - p[:, :b]).abs().amax(), (c_next - c).abs().amax())
+    check(torch.equal(resid[0], want), f"phase 10 ({tag}, b={b}): the kernel's residual {resid.item()} is not "
+          f"the max over its own outputs {want.item()}")
+    check(bool((p_next[:, b:] == 0).all()), f"phase 10 ({tag}, b={b}): columns past b are not masked")
+    if bf16:
+        check(torch.equal(pg_next, p_next.to(torch.bfloat16)), f"phase 10 ({tag}, b={b}): bf16 copy differs")
+    torch_next, torch_c = k2_torch_stepper(graph, gather_dtype)(p, r, c, rdm, b)
+    check(torch.equal(c_next, torch_c), f"phase 10 ({tag}, b={b}): c_next differs from the torch step")
+    bound, _ = k2_step_bound(plan, graph, p, b, gather_dtype)
+    diff = (p_next[:, :b] - torch_next).abs().double()
+    slack = bound + 4 * 2.0**-24 * torch_next.abs().double()
+    check(bool((diff <= slack).all()), f"phase 10 ({tag}, b={b}): kernel step off the torch step by "
+          f"{float(diff.max())} beyond the stated bound")
+    return float(diff.max()), float((diff / slack.clamp_min(1e-30)).max())
+
+
+def k2_solves(tag, graph, cpu_graph, reset, gather):
+    """Full solves on the card (the kernel route) against the same solves
+    on the CPU (the torch step): per-tile iteration counts equal, max |Δp|,
+    launches; the card's solve never runs ``_spmv_ell``."""
+    from hipporag_tpu_torch.ops import pagerank as ell_ops
+
+    out = {}
+    for accel in ("power", "chebyshev"):
+        kw = dict(damping=DAMPING, max_iters=PPR_MAX_ITERS, tol=PPR_TOL, compute_dtype=gather,
+                  accel=accel, return_iters=True)
+        p_torch, it_torch = batched_ppr_ell(cpu_graph, reset.cpu(), **kw)
+        p_torch, it_torch = p_torch.to(reset.device), it_torch.to(reset.device)
+        spmv = ell_ops._spmv_ell
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("phase 10: the kernel route ran the torch SpMV")
+
+        before = ell_ops.ELL_STEP_LAUNCHES.count
+        try:
+            ell_ops._spmv_ell = refuse
+            with recording(), span("retrieve/ppr") as counted:
+                p_k, it_k = batched_ppr_ell(graph, reset, **kw)
+            p_k2, _ = batched_ppr_ell(graph, reset, **kw)
+        finally:
+            ell_ops._spmv_ell = spmv
+        sync()
+        launches = ell_ops.ELL_STEP_LAUNCHES.count - before
+        tile_iters = it_k[::128].tolist()
+        check(torch.equal(it_k, it_torch), f"phase 10 ({tag}, {accel}, {gather}): iterations {it_k.unique().tolist()}"
+              f" on the card, {it_torch.unique().tolist()} on the CPU's torch step")
+        check(torch.equal(p_k, p_k2), f"phase 10 ({tag}, {accel}, {gather}): two kernel solves differ")
+        check(launches == 2 * sum(tile_iters),
+              f"phase 10 ({tag}, {accel}): {launches} launches for {sum(tile_iters)} steps x 2 solves")
+        attrs = counted.attrs
+        check(attrs.get("kernel_iterations") == attrs.get("iterations") == sum(tile_iters),
+              f"phase 10 ({tag}, {accel}): span counts {attrs}, want {sum(tile_iters)} kernel iterations")
+        out[f"{accel}_{gather or 'float32'}"] = {
+            "iters_per_tile": tile_iters,
+            "max_abs_vs_torch": float((p_k - p_torch).abs().max()),
+            "launches_per_solve": launches // 2,
+        }
+    return out
+
+
+def k2_timing(graph, plan, reset, b=128):
+    """CUDA-event ms per step at b columns: the kernel (f32 and bf16 gathers)
+    and the torch step, against the least time of one iteration; and whole
+    solves on the card, ms per iteration of host time."""
+    from hipporag_tpu_torch.ops import pagerank as ell_ops
+
+    ld = b
+    r, rdm = k2_slot_state(graph, reset[:b], ld)
+    c = torch.ones(b, device=r.device)
+    out = {}
+    for tag, gdt in (("float32", None), ("bfloat16", torch.bfloat16)):
+        pg = r.to(gdt) if gdt is not None else r
+        bufs = (torch.empty_like(r), torch.empty_like(pg) if gdt is not None else None, torch.empty_like(c),
+                r.new_empty(plan.n_parts, ld), r.new_empty(1))
+        out[f"kernel_ms_{tag}"] = time_ms(lambda: ell_ops.ell_step(plan, pg, r, r, c, rdm, DAMPING, *bufs), reps=50)
+        torch_step = k2_torch_stepper(graph, gdt)
+        out[f"torch_step_ms_{tag}"] = time_ms(lambda: torch_step(r, r, c, rdm, b), reps=10)
+    entries, nodes = int(plan.ent.shape[0]), int(graph.num_nodes)
+    least_bytes = 8 * entries + 2 * 4 * nodes * b
+    out["least_ms"] = least_bytes / HBM_BYTES_PER_S * 1e3
+    out["least_bytes"] = least_bytes
+    out["gathered_row_bytes"] = entries * 4 * b
+    out["roofline_share_float32"] = out["least_ms"] / out["kernel_ms_float32"]
+    kw = dict(damping=DAMPING, max_iters=PPR_MAX_ITERS, tol=PPR_TOL, return_iters=True)
+    _, iters = batched_ppr_ell(graph, reset[:b], **kw)
+    sync()
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        batched_ppr_ell(graph, reset[:b], **kw)
+    sync()
+    wall = (time.perf_counter() - t0) / reps
+    out["kernel_solve_ms"] = wall * 1e3
+    out["kernel_solve_ms_per_iter"] = wall * 1e3 / int(iters[0])
+    return out
+
+
+def k2_plan_stats(graph, plan):
+    items = plan.items
+    return {
+        "slots": plan.n_slots, "nodes": int(graph.num_nodes), "entries": int(plan.ent.shape[0]),
+        "ell_entries_with_padding": ell_gathered_rows_per_iter(graph), "items": int(items.shape[0]),
+        "wide_slots": int(plan.multi.shape[0]), "partial_rows": plan.n_parts,
+        "max_partials_per_slot": int(plan.multi[:, 2].max()) if plan.multi.shape[0] else 0,
+        "hub_chunk_rows": int(graph.hub_idx.shape[0]), "buckets": len(graph.bucket_idx),
+        "plan_bytes": sum(t.nbytes for t in (plan.ent, plan.items, plan.multi)),
+    }
+
+
+def phase10_k2(device, bench_seed=K2_BENCH_SEED):
+    """K2 on the card, on a small hub-heavy graph and on the benchmark's
+    graph (``perfbench``'s ``nvembed2-musique`` deployment at ``bench_seed``):
+    one step against the torch step at b = 8, 32, 104, 128 with f32 and
+    bf16 gathers (within the stated bound, the kernel's residual equal to
+    the max over its outputs, bit-identical reruns), whole power and
+    Chebyshev solves with the iteration counts of the CPU's torch step,
+    then times."""
+    from hipporag_tpu_torch.ops import pagerank as ell_ops
+
+    start = time.perf_counter()
+    ell_ops._step_fn()
+    build_s, build_log = _kernels.build_info.get("ell_ppr_step", (0.0, ""))
+    log(f"phase 10: kernel build: ell_ppr_step.cu {build_s:.1f} s (load {time.perf_counter() - start:.1f} s)")
+    for line in build_log.strip().splitlines():
+        log(f"  nvcc: {line}")
+    rng = np.random.default_rng(10)
+    graphs = {"hub_heavy": (hub_heavy_graph().to(device), None)}
+    from perfbench.deployment import Deployment
+
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, "perfbench", "configs", "nvembed2-musique.json")) as fh:
+        dep = Deployment(json.load(fh), bench_seed, device)
+    index = dep.rag._index_state
+    passages = index.passage_node_ids[:index.num_passages].cpu().numpy()
+    graphs["benchmark"] = (index.graph, passages)
+    log(f"phase 10: the benchmark's graph (seed {bench_seed}) built in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for tag, (graph, pnodes) in graphs.items():
+        plan = ell_ops.ell_plan(graph)
+        cpu_graph = graph.to("cpu")
+        rec = {"plan": k2_plan_stats(graph, plan), "step": {}}
+        reset = k2_resets(rng, graph, 128, pnodes)
+        for gather in (None, torch.bfloat16):
+            for b in K2_WIDTHS:
+                err, used = k2_check_step(tag, graph, plan, reset, b, gather)
+                rec["step"][f"b{b}_{'bfloat16' if gather is not None else 'float32'}"] = {
+                    "max_abs_vs_torch": err, "share_of_bound": used}
+        rec["solves"] = {}
+        for b in K2_WIDTHS + (200,):
+            res = k2_resets(rng, graph, b, pnodes)
+            for gather in (None, "bfloat16"):
+                rec["solves"][f"b{b}"] = {**rec["solves"].get(f"b{b}", {}),
+                                          **k2_solves(tag, graph, cpu_graph, res, gather)}
+        rec["timing_b128"] = k2_timing(graph, plan, reset)
+        out[tag] = rec
+        log(f"phase 10 ({tag}): " + json.dumps(rec))
+    dep.close()
     return out
 
 
@@ -2186,7 +2547,12 @@ def main() -> int:
         "wall_s": time.perf_counter() - t0,
         **{name: v.get("skipped", "ran") for name, v in p9.items() if name != "multihop"},
         "multihop": p9["multihop"]["result"]}))
-    log(f"chip_smoke: phases 1-9 passed in {time.perf_counter() - run_start:.1f} s")
+    t0 = time.perf_counter()
+    p10 = phase10_k2(device)
+    log(f"phase 10 summary on {smi}: " + json.dumps({
+        "wall_s": time.perf_counter() - t0,
+        **{tag: {"plan": rec["plan"], "timing_b128": rec["timing_b128"]} for tag, rec in p10.items()}}))
+    log(f"chip_smoke: phases 1-10 passed in {time.perf_counter() - run_start:.1f} s")
 
     f32, bf16 = big["f32"], big["bf16"]
     kernels = [{
@@ -2222,6 +2588,13 @@ def main() -> int:
         "bound_ms_bf16": bf16["bound"]["bound_ms"],
         "bound_by_bf16": bf16["bound"]["bound_by"],
         "fact_topk_bf16_default_route": big["bf16_route"],
+    }, {
+        "name": "ell_ppr_step",
+        "route": "cuda",
+        "source": "hipporag_tpu_torch/csrc/ell_ppr_step.cu",
+        "replaces": "none: the JAX package's ELL step is XLA (hipporag_tpu/ops/pagerank.py _spmv_ell)",
+        "launches_by_path": K2_PATHS,
+        **{f"{tag}_b128": rec["timing_b128"] for tag, rec in p10.items()},
     }]
     stray = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hipporag_tpu"))
     check(not stray, f"the port imported {stray[:5]}")

@@ -9,7 +9,11 @@ Two operators, as in the JAX package:
   device schedules the adds.
 - **Bucketed ELL** (``batched_ppr_ell``): the host-side packing into the
   slot-space layout (NumPy, array for array the layout the JAX package
-  builds) and the power or Chebyshev iteration as torch ops.
+  builds) and the power or Chebyshev iteration. On a CUDA device each step
+  is one call of the hand-written kernel ``csrc/ell_ppr_step.cu`` (K2:
+  every bucket, the hub chunks, the affine update and the residual), over
+  a plan of the operator built once per graph (``ell_plan``); on the CPU
+  the step is torch ops (``_spmv_ell`` and the affine update).
 
 Semantics are those of ``igraph.personalized_pagerank`` on a weighted
 undirected graph:
@@ -29,12 +33,16 @@ the JAX ``while_loop`` decides them.
 
 from __future__ import annotations
 
+import ctypes
+import threading
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..utils.timing import count
+from ._kernels import LaunchCounter, load
 
 
 class COOGraph(NamedTuple):
@@ -481,6 +489,278 @@ def _spmv_ell(graph: ELLGraph, p_slot: torch.Tensor, hub_rows: torch.Tensor,
     return torch.cat(parts)
 
 
+# ======================================================================
+# The step kernel (K2, csrc/ell_ppr_step.cu)
+# ======================================================================
+# Entries one work item of the step kernel reduces at most: its schedule's
+# grain (the kernel takes items of any length).
+_ELL_SEGMENT = 32
+# Query columns of one kernel step (the kernel's MAX_LD; = the batch tile).
+_ELL_STEP_MAX_COLUMNS = 128
+
+ELL_STEP_LAUNCHES = LaunchCounter()
+
+
+class ELLStepPlan(NamedTuple):
+    """The ELL operator as the step kernel reads it (``build_ell_plan``).
+
+    ``ent`` holds every entry up to each row's last nonzero weight (the
+    zero-weight padding after it adds nothing): bucket rows in slot order,
+    then the hub chunk rows in ``hub_seg`` order. A slot whose entries make
+    at most ``_ELL_SEGMENT`` is one work item that finishes it; a wider slot
+    (wide bucket rows, every hub) is cut into items of at most that many
+    entries, each writing one partial row, and ``multi`` sums a slot's
+    partial rows in item order. Items are sorted heaviest first (stable).
+    """
+
+    ent: torch.Tensor  # [E, 2] int32: (source slot, float32 weight bits)
+    items: torch.Tensor  # [n_items, 4] int32: (slot, first entry, entries, partial row or -1)
+    multi: torch.Tensor  # [n_multi, 4] int32: (slot, first partial row, partial rows, 0)
+    n_parts: int
+    n_slots: int
+
+
+def _row_lengths(wgt: np.ndarray) -> np.ndarray:
+    """Entries of each [rows, W] row up to and including its last nonzero weight."""
+    if wgt.shape[0] == 0 or wgt.shape[1] == 0:
+        return np.zeros(wgt.shape[0], np.int64)
+    nz = wgt != 0
+    last = wgt.shape[1] - np.argmax(nz[:, ::-1], axis=1)
+    return np.where(nz.any(1), last, 0).astype(np.int64)
+
+
+def build_ell_plan(graph: ELLGraph) -> ELLStepPlan:
+    """The step kernel's plan of ``graph`` (host NumPy, once per graph), as
+    tensors on the graph's device. Every slot row is finished by exactly
+    one item (single) or one ``multi`` row; rows with no entries (capacity
+    rows, unused hub slots, the zero row) are items of 0 entries."""
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    n_slots = int(graph.slot_to_node.shape[0])
+    n_hub_cap = int(graph.hub_zero.shape[0])
+    slots, idx_blocks, wgt_blocks = [], [], []
+    base = 0
+    for idx, wgt in zip(graph.bucket_idx, graph.bucket_wgt):
+        slots.append(base + np.arange(idx.shape[0], dtype=np.int64))
+        idx_blocks.append(host(idx))
+        wgt_blocks.append(host(wgt))
+        base += int(idx.shape[0])
+    hub_seg = host(graph.hub_seg).astype(np.int64)
+    live = hub_seg < n_hub_cap  # pad chunk rows point past the hub slots
+    slots.append(base + hub_seg[live])
+    idx_blocks.append(host(graph.hub_idx)[live])
+    wgt_blocks.append(host(graph.hub_wgt)[live])
+
+    row_slot = np.concatenate(slots)
+    if np.any(np.diff(row_slot) < 0):
+        raise ValueError("build_ell_plan: hub_seg must be sorted")
+    row_len = np.concatenate([_row_lengths(w) for w in wgt_blocks])
+    keep = [np.arange(i.shape[1]) < n[:, None] for i, n in
+            zip(idx_blocks, np.split(row_len, np.cumsum([i.shape[0] for i in idx_blocks])[:-1]))]
+    ent_idx = np.concatenate([i[k] for i, k in zip(idx_blocks, keep)]).astype(np.int32)
+    ent_wgt = np.concatenate([w[k] for w, k in zip(wgt_blocks, keep)]).astype(np.float32)
+    if len(ent_idx) >= 2**31 or n_slots >= 2**31:
+        raise ValueError("build_ell_plan: the kernel indexes entries and slots with int32")
+
+    # items of at most _ELL_SEGMENT entries, in row order
+    segment = _ELL_SEGMENT
+    row_beg = np.cumsum(row_len) - row_len
+    n_seg = -(-row_len // segment)
+    seg_row = np.repeat(np.arange(len(row_len)), n_seg)
+    k = np.arange(len(seg_row)) - np.repeat(np.cumsum(n_seg) - n_seg, n_seg)
+    seg_slot = row_slot[seg_row]
+    seg_beg = row_beg[seg_row] + k * segment
+    seg_len = np.minimum(row_len[seg_row] - k * segment, segment)
+    slot_segs = np.bincount(seg_slot, minlength=n_slots)
+    wide = slot_segs[seg_slot] > 1
+    part = np.full(len(seg_row), -1, dtype=np.int64)
+    part[wide] = np.arange(int(wide.sum()))
+    # rows come grouped by slot in ascending order, so a wide slot's
+    # partial rows are consecutive and in item order
+    m_slot = np.nonzero(slot_segs > 1)[0]
+    m_count = slot_segs[m_slot]
+    m_first = np.cumsum(m_count) - m_count
+    empty = np.nonzero(slot_segs == 0)[0]
+    zeros = np.zeros(len(empty), np.int64)
+    items = np.stack([
+        np.concatenate([seg_slot, empty]), np.concatenate([seg_beg, zeros]),
+        np.concatenate([seg_len, zeros]), np.concatenate([part, zeros - 1]),
+    ], axis=1)
+    items = items[np.argsort(-items[:, 2], kind="stable")]
+    multi = np.stack([m_slot, m_first, m_count, np.zeros_like(m_slot)], axis=1)
+
+    dev = graph.slot_to_node.device
+    ent = np.stack([ent_idx, ent_wgt.view(np.int32)], axis=1)
+    return ELLStepPlan(
+        ent=torch.from_numpy(np.ascontiguousarray(ent)).to(dev),
+        items=torch.from_numpy(items.astype(np.int32)).to(dev),
+        multi=torch.from_numpy(multi.astype(np.int32).reshape(-1, 4)).to(dev),
+        n_parts=int(wide.sum()),
+        n_slots=n_slots,
+    )
+
+
+_plans: dict = {}
+_plans_lock = threading.Lock()
+
+
+def _graph_tensors(graph: ELLGraph):
+    return [*graph.bucket_idx, *graph.bucket_wgt, graph.hub_idx, graph.hub_wgt, graph.hub_seg,
+            graph.hub_zero, graph.slot_to_node]
+
+
+def ell_plan(graph: ELLGraph) -> ELLStepPlan:
+    """``build_ell_plan(graph)``, built on first use and kept while the
+    graph's tensors live: keyed by their identity, dropped when any of them
+    is freed. The first solve on the card builds it; a caller's warm-up
+    call does so in set-up."""
+    tensors = _graph_tensors(graph)
+    key = tuple(id(t) for t in tensors)
+    with _plans_lock:
+        plan = _plans.get(key)
+    if plan is not None:
+        return plan
+    plan = build_ell_plan(graph)
+    with _plans_lock:
+        if key not in _plans:
+            _plans[key] = plan
+            for t in tensors:
+                weakref.finalize(t, _plans.pop, key, None)
+        return _plans[key]
+
+
+def check_step_args(plan: ELLStepPlan, pg, p, r, c, rdm, p_next, pg_next, c_next, partials, resid) -> None:
+    """Raise unless the step kernel takes these operands (device aside)."""
+    f32 = torch.float32
+    named = dict(p=p, r=r, c=c, rdm=rdm, p_next=p_next, c_next=c_next, partials=partials, resid=resid)
+    for name, t in named.items():
+        if t.dtype != f32:
+            raise TypeError(f"ell_step: {name} must be float32, got {t.dtype}")
+    if pg.dtype not in (f32, torch.bfloat16):
+        raise TypeError(f"ell_step: the gathered state must be float32 or bfloat16, got {pg.dtype}")
+    if (pg_next is None) != (pg.dtype == f32) or (pg_next is not None and pg_next.dtype != pg.dtype):
+        raise TypeError("ell_step: a bfloat16 gathered state needs a bfloat16 pg_next, a float32 one none")
+    for name, t in (("ent", plan.ent), ("items", plan.items), ("multi", plan.multi)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"ell_step: the plan's {name} must be int32, got {t.dtype}")
+    if p.dim() != 2:
+        raise ValueError(f"ell_step: the state must be [S, ld], got {tuple(p.shape)}")
+    s, ld = p.shape
+    b = c.numel()
+    if s != plan.n_slots or ld % 4 or not 0 < b <= ld <= _ELL_STEP_MAX_COLUMNS:
+        raise ValueError(
+            f"ell_step: state [{s}, {ld}] with b = {b} columns; the kernel needs S = {plan.n_slots}, "
+            f"ld % 4 == 0 and 0 < b <= ld <= {_ELL_STEP_MAX_COLUMNS}"
+        )
+    rows = dict(pg=pg, r=r, p_next=p_next, **({"pg_next": pg_next} if pg_next is not None else {}))
+    for name, t in rows.items():
+        if tuple(t.shape) != (s, ld):
+            raise ValueError(f"ell_step: {name} is {tuple(t.shape)}, want {(s, ld)}")
+    for name, t in (("rdm", rdm), ("c_next", c_next)):
+        if t.numel() != b:
+            raise ValueError(f"ell_step: {name} has {t.numel()} columns, c has {b}")
+    if tuple(partials.shape) != (plan.n_parts, ld) or resid.numel() != 1:
+        raise ValueError(f"ell_step: partials {tuple(partials.shape)} (want {(plan.n_parts, ld)}) "
+                         f"or resid of {resid.numel()} elements (want 1)")
+    if (plan.ent.dim() != 2 or plan.ent.shape[1] != 2 or plan.items.dim() != 2 or plan.items.shape[1] != 4
+            or plan.multi.dim() != 2 or plan.multi.shape[1] != 4):
+        raise ValueError("ell_step: the plan's tables must be [E, 2], [n_items, 4] and [n_multi, 4]")
+    everything = dict(named, pg=pg, ent=plan.ent, items=plan.items, multi=plan.multi,
+                      **({"pg_next": pg_next} if pg_next is not None else {}))
+    for name, t in everything.items():
+        if not t.is_contiguous():
+            raise ValueError(f"ell_step: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"ell_step: {name} must be 16-byte aligned")
+
+
+def ell_step(plan: ELLStepPlan, pg, p, r, c, rdm, damping, p_next, pg_next, c_next, partials, resid) -> None:
+    """One power step of the K2 kernel into the given outputs.
+
+    ``pg`` is the state the gathers read: ``p`` itself, or its bfloat16
+    copy, in which case the weights are rounded to bfloat16 too (as in
+    ``_bucket_reduce``) and the kernel writes ``p_next``'s copy into
+    ``pg_next``. ``p``, ``r`` are [S, ld], ``c``, ``rdm`` [b] with
+    b <= ld; columns past b come out 0 and stay out of ``resid``, the
+    step's max of |p_next - p| and |c_next - c|. ``partials`` is scratch.
+    Every operand is on one CUDA device; each launch counts in
+    ``ELL_STEP_LAUNCHES``.
+    """
+    operands = [pg, p, r, c, rdm, p_next, c_next, partials, resid, plan.ent, plan.items, plan.multi]
+    if pg_next is not None:
+        operands.append(pg_next)
+    if p.device.type != "cuda" or any(t.device != p.device for t in operands):
+        raise ValueError("ell_step: every operand must be on one CUDA device")
+    check_step_args(plan, pg, p, r, c, rdm, p_next, pg_next, c_next, partials, resid)
+    d = np.float32(damping)
+    with torch.cuda.device(p.device):  # the kernel launches on the current device
+        err = _step_fn()(
+            plan.ent.data_ptr(), plan.items.data_ptr(), plan.multi.data_ptr(),
+            pg.data_ptr(), int(pg.dtype == torch.bfloat16), p.data_ptr(), r.data_ptr(),
+            c.data_ptr(), rdm.data_ptr(), p_next.data_ptr(),
+            pg_next.data_ptr() if pg_next is not None else None,
+            c_next.data_ptr(), partials.data_ptr(), resid.data_ptr(),
+            plan.items.shape[0], plan.multi.shape[0], c.numel(), p.shape[1],
+            float(d), float(np.float32(1.0) - d), torch.cuda.current_stream(p.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ell_ppr_step kernel launch failed: CUDA error {err}")
+    ELL_STEP_LAUNCHES.add()
+
+
+def _step_fn():
+    lib = load("ell_ppr_step")
+    fn = lib.ell_ppr_step
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 9
+            + [ctypes.c_int64] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+class _KernelStep:
+    """The K2 step of one column tile, ``(p, c) -> (p_next, c_next)``, with
+    the step's residual left in ``resid`` (a device scalar).
+
+    The tile's columns are padded to a multiple of 4 (zeros, masked inside
+    the kernel): ``r`` is the padded reset, and the states it steps are
+    [S, ld]. With bfloat16 gathers the kernel writes each output's
+    bfloat16 copy, which the next step reads; any other state is converted.
+    """
+
+    def __init__(self, plan, r_slot, rdm, damping, gather_dtype):
+        b = r_slot.shape[1]
+        ld = -(-b // 4) * 4
+        self.plan, self.damping = plan, damping
+        self.r = r_slot.contiguous() if ld == b else torch.nn.functional.pad(r_slot, (0, ld - b))
+        self.rdm = rdm.reshape(-1).contiguous()
+        self.partials = self.r.new_empty(plan.n_parts, ld)
+        self.resid = self.r.new_empty(1)
+        self.bf16 = gather_dtype == torch.bfloat16
+        self._copies = [(self.r, self.r.to(torch.bfloat16))] if self.bf16 else []
+
+    def _gathered(self, p):
+        if not self.bf16:
+            return p
+        for state, copy in self._copies:
+            if state is p:
+                return copy
+        return p.to(torch.bfloat16)
+
+    def __call__(self, p, c):
+        pg = self._gathered(p)
+        p_next, c_next = torch.empty_like(p), torch.empty_like(c)
+        pg_next = torch.empty_like(pg) if self.bf16 else None
+        ell_step(self.plan, pg, p, self.r, c, self.rdm, self.damping, p_next, pg_next, c_next,
+                 self.partials, self.resid)
+        if self.bf16:
+            self._copies = [(self.r, self._copies[0][1]), (p_next, pg_next)]
+        return p_next, c_next
+
+
 def _stalled(err, err_prev, tol, damping) -> bool:
     """True when the residual has hit its floating-point floor: it stopped
     improving (ratio >= max(0.995, (1+d)/2)) while already within 100x of
@@ -588,21 +868,37 @@ def batched_ppr_ell(
     r_ext = torch.cat([r_T, r_T.new_zeros(1, r_T.shape[1])])
     r_slot = r_ext[graph.slot_to_node]  # [S, B]
     reset_dangling_mass = (r_T * graph.dangling[:, None]).sum(0, keepdim=True)
-    hub_rows = _hub_rows(graph)
+    kernel = dev.type == "cuda"  # K2 steps every tile on the card
+    if kernel:
+        plan = ell_plan(graph)
+    else:
+        hub_rows = _hub_rows(graph)
+
+    def residual(x_next, x, c_next, c):
+        err = torch.maximum((x_next - x).abs().amax(), (c_next - c).abs().amax())
+        return np.float32(err.item())
 
     def _solve(r_slot, rdm):
         """While-loop solve for one [S, b<=tile] column block."""
+        b = r_slot.shape[1]
+        if kernel:
+            step = _KernelStep(plan, r_slot, rdm, damping, gather_dtype)
+            r_slot = step.r
 
-        def step(p_slot, c):
-            y = _spmv_ell(graph, p_slot, hub_rows, gather_dtype)
-            dm = c * rdm
-            p_next = one_minus_d * r_slot + d * (y + dm * r_slot)
-            c_next = one_minus_d + d * dm
-            return p_next, c_next
+            def step_err(p_slot, c):
+                p_next, c_next = step(p_slot, c)
+                return p_next, c_next, np.float32(step.resid.item())
+        else:
+            def step(p_slot, c):
+                y = _spmv_ell(graph, p_slot, hub_rows, gather_dtype)
+                dm = c * rdm
+                p_next = one_minus_d * r_slot + d * (y + dm * r_slot)
+                c_next = one_minus_d + d * dm
+                return p_next, c_next
 
-        def residual(x_next, x, c_next, c):
-            err = torch.maximum((x_next - x).abs().amax(), (c_next - c).abs().amax())
-            return np.float32(err.item())
+            def step_err(p_slot, c):
+                p_next, c_next = step(p_slot, c)
+                return p_next, c_next, residual(p_next, p_slot, c_next, c)
 
         one = torch.ones_like(rdm)
         if accel == "chebyshev":
@@ -629,14 +925,14 @@ def batched_ppr_ell(
                 and it < max_iters
                 and not _stalled2(err, err_prev, err_prev2, tol, damping)
             ):
-                p_next, c_next = step(p_slot, c)
-                err_next = residual(p_next, p_slot, c_next, c)
+                p_next, c_next, err_next = step_err(p_slot, c)
                 p_slot, c = p_next, c_next
                 err_prev2, err_prev, err = err_prev, err, err_next
                 it += 1
         _count_tile(it)
-        it_row = torch.full((1, r_slot.shape[1]), it, dtype=torch.int32, device=dev)
-        return p_slot, c, it_row
+        count("kernel_iterations", it if kernel else 0)
+        it_row = torch.full((1, b), it, dtype=torch.int32, device=dev)
+        return p_slot[:, :b], c, it_row
 
     p_slot, c, it_row = tile_columns(_solve, r_slot, reset_dangling_mass)
 
@@ -831,8 +1127,10 @@ def _plan_temp_bytes(nb: int, w: int, b: int, itemsize: int) -> int:
 
 
 def ell_hbm_estimate(graph: ELLGraph, batch: int, itemsize: int = 4) -> dict:
-    """Device-memory model of a ``batched_ppr_ell`` solve over the port's
-    buffers (what batch fits this card?). Byte counts:
+    """Device-memory model of a ``batched_ppr_ell`` solve on the torch-op
+    route (what batch fits?). The kernel route on the card forms no
+    gathered block; its plan (``ell_plan``) holds 8 bytes per nonzero entry
+    and 16 per work item. Byte counts:
 
     - ``operator_bytes``: every tensor of the ELLGraph (``tensor.nbytes``
       summed), int32 slot ids, float32 weights.

@@ -118,7 +118,7 @@ def stage_breakdown(log) -> dict:
             "children_cover": child_ns / max(1, root.end_ns - root.start_ns),
             "stages": {name: {"count": n, "ms": ms} for name, (n, ms) in sorted(by_name.items())},
             "ppr": {k: sum(s.attrs.get(k, 0) for s in call if s.name == "retrieve/ppr")
-                    for k in ("tiles", "iterations")}}
+                    for k in ("tiles", "iterations", "kernel_iterations")}}
 
 
 def main(argv=None) -> int:
