@@ -3,7 +3,9 @@ embedding model and an LLM, each behind the port's own interface.
 
 - :class:`StandInEmbedder` gives index texts (``instruction=""``: passages,
   entity phrases, facts) the benchmark's hashing vectors, computed in bulk
-  on the device. Questions (any other instruction) are looked up in the
+  on the device. Questions (any other instruction) go to the question
+  encoder where the configuration names one (``encoders/``), which encodes
+  them inside the engine call; without one they are looked up in the
   vectors of the questions handed to it last (``set_questions``), made
   before the engine call that asks them. It keeps no on-disk cache.
 - :class:`EchoFilterLLM` answers the recognition-memory filter with the
@@ -27,10 +29,11 @@ _FACTS_IN = "[[ ## fact_before_filter ## ]]\n"
 
 
 class StandInEmbedder(BaseEmbeddingModel):
-    def __init__(self, global_config, dim: int, device):
+    def __init__(self, global_config, dim: int, device, questions: BaseEmbeddingModel = None):
         super().__init__(global_config)
         self.embedding_dim = dim
         self.device = device
+        self.questions = questions
         self._rows: dict = {}
         self._table = np.zeros((0, dim), np.float32)
 
@@ -49,6 +52,8 @@ class StandInEmbedder(BaseEmbeddingModel):
 
     def batch_encode(self, texts, instruction: str = "", norm=None):
         if instruction:
+            if self.questions is not None:
+                return self.questions.batch_encode(texts, instruction, norm)
             return super().batch_encode(texts, instruction, norm)
         single = isinstance(texts, str)
         texts = [texts] if single else list(texts)

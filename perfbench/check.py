@@ -14,7 +14,16 @@ the plain reference (``reference/``) for that question:
   served there lies below the reference's score at that rank (0 for the
   reference's own order; near ties give tiny gaps);
 - ``score_err``: the largest difference between a served score and the
-  reference's score of that passage.
+  reference's score of that passage;
+- ``embed_err`` (configurations that name a question encoder): the largest
+  L2 distance between a row the program's encoder gave a sampled question
+  (unit length) and the reference encoder's row for the same text and
+  instruction, over the sample and both instructions.
+
+The ranking is judged on the question rows the timed path used: the fact
+rows for the fact scores and the passage rows for the dense passage
+scores. Without an encoder both are the benchmark's hashing rows; with one
+they are the program's own rows, and ``embed_err`` judges the encoder.
 
 The ranking is judged against the reference's own graph search, from its
 own top facts. Where scores tie at a ``linking_top_k`` cut (facts within
@@ -32,11 +41,12 @@ import torch
 from .reference.retrieval import Reference
 
 
-def judge(ref: Reference, query_vecs: torch.Tensor, answers, graph: bool, block: int = 256) -> dict:
+def judge(ref: Reference, fact_vecs: torch.Tensor, passage_vecs: torch.Tensor, answers, graph: bool,
+          block: int = 256) -> dict:
     """``answers``: dicts with ``docs`` (passage texts), ``scores``, ``k``
     (how many were asked for) and, for graph search, ``facts`` (kept
-    triples). ``query_vecs``: [len(answers), D] float64 on the reference's
-    device."""
+    triples). ``fact_vecs``, ``passage_vecs``: [len(answers), D] float64
+    question rows on the reference's device."""
     out = {"malformed": 0, "rank_gap": 0.0, "score_err": 0.0}
     if graph and any(a["facts"] is not None for a in answers):
         out["fact_gap"] = 0.0
@@ -44,13 +54,12 @@ def judge(ref: Reference, query_vecs: torch.Tensor, answers, graph: bool, block:
     n_pass = len(ref.graph.passages)
     for start in range(0, len(answers), block):
         part = answers[start:start + block]
-        q = query_vecs[start:start + block]
-        dense = ref.dense_scores(q)
+        dense = ref.dense_scores(passage_vecs[start:start + block])
         if not graph:
             for i, a in enumerate(part):
                 _keep_worst(out, _gaps(a, dense[i], ref, n_pass))
             continue
-        facts = ref.fact_scores(q)
+        facts = ref.fact_scores(fact_vecs[start:start + block])
         rows, owners = [], []
         for i, a in enumerate(part):
             if a["facts"] is not None:
@@ -98,6 +107,13 @@ def _keep_worst(out: dict, gaps) -> None:
         return
     out["rank_gap"] = max(out["rank_gap"], gaps[0])
     out["score_err"] = max(out["score_err"], gaps[1])
+
+
+def embed_err(program_rows, reference_rows) -> float:
+    """Largest L2 distance between matching rows of the (fact, passage)
+    pairs ``program_rows`` and ``reference_rows``, in float64."""
+    return max(float(torch.linalg.vector_norm(p.double() - r.to(p.device, torch.float64), dim=1).max())
+               for p, r in zip(program_rows, reference_rows))
 
 
 def verdict(numbers: dict, limits: dict) -> tuple:

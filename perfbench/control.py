@@ -2,8 +2,12 @@
 """The control of a cell's comparison: the plain reference put in the
 program's place, computed one precision below what the configuration
 states (float32 with TF32 products, for float32 with TF32 off), judged by
-the same comparison as a run. Its numbers are the upper readings the
-limits of ``workloads/<cell>.json`` are set below.
+the same comparison as a run. Where the configuration names a question
+encoder, the reference encoder computed with every product's operands one
+precision below the configuration's ``torch_dtype`` (TF32 for float32, fp8
+e4m3 for bfloat16) gives the question rows in the program's place, and ``embed_err`` is reported beside the ranking numbers. Its
+numbers are the upper readings the limits of ``workloads/<cell>.json``
+are set below.
 
     python3 perfbench/control.py --workload <cell> --seeds 11,12,13 [--answers 256]
 
@@ -27,20 +31,20 @@ from perfbench.corpus import Corpus, QuestionStream  # noqa: E402
 from perfbench.sampling import answer  # noqa: E402
 
 
-def control_answers(ref, qvecs, questions, ks, settings, entry: str, with_facts: bool):
+def control_answers(ref, fact_vecs, passage_vecs, questions, ks, settings, entry: str, with_facts: bool):
     """Answers as the timed path would give them, from ``ref`` (in the
     control's precision): per tile of ``ppr_batch_size`` questions, the top
     facts, the seeds, PageRank at the configured tolerance and the ranking."""
     out = []
     tile = settings["ppr_batch_size"]
     for s in range(0, len(questions), tile):
-        q = qvecs[s:s + tile]
+        q = passage_vecs[s:s + tile]
         dense = ref.dense_scores(q)
         if entry == "retrieve_dpr":
             scores = dense
             kept = [None] * len(q)
         else:
-            facts = ref.fact_scores(q)
+            facts = ref.fact_scores(fact_vecs[s:s + tile])
             kept, rows = [], []
             for i in range(q.shape[0]):
                 ids = torch.topk(facts[i], settings["linking_top_k"]).indices.tolist()
@@ -63,16 +67,27 @@ def control_numbers(config, params, seed: int, count: int, device) -> dict:
     settings = config["hipporag"]
     ks = [settings["retrieval_top_k"]] * count
     entry = params.get("entry", "retrieve")
-    ref, query_vecs = run.reference_for(config, corpus, device)
+    rows = None
+    if config.get("query_encoder"):
+        from perfbench.reference import encoders
+
+        control = encoders.rows(config, seed, questions, device, precision=encoders.LOWER[config["torch_dtype"]])
+        rows = {kind: dict(zip(questions, t.cpu().numpy())) for kind, t in zip(encoders.KINDS, control)}
+    ref, query_rows = run.reference_for(config, corpus, device, rows)
+    fact_rows, passage_rows = query_rows(questions)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = device.type == "cuda"
     try:
         # every product in TF32
-        answers = control_answers(ref.as_dtype(torch.float32), query_vecs(questions).float(), questions, ks,
-                                  settings, entry, with_facts=entry == "retrieve")
+        answers = control_answers(ref.as_dtype(torch.float32), fact_rows.float(), passage_rows.float(), questions,
+                                  ks, settings, entry, with_facts=entry == "retrieve")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    return check.judge(ref, query_vecs(questions), answers, graph=entry == "retrieve")
+    numbers = check.judge(ref, fact_rows, passage_rows, answers, graph=entry == "retrieve")
+    if rows is not None:
+        numbers["embed_err"] = check.embed_err((fact_rows, passage_rows),
+                                               encoders.rows(config, seed, questions, device))
+    return numbers
 
 
 def main(argv=None) -> int:

@@ -5,4 +5,7 @@ key of a traffic file. Each module defines ``Driver(ctx)`` with
 ``close()``; ``measure`` returns a dict with the end-to-end metrics
 (``e2e``), ``attempted``, ``failed``, the sampled ``answers`` to judge, the
 window's counters (``counters``), the engine calls it drove (``calls``),
-the reduced trace (``trace``, traced runs only) and ``window_s``."""
+the reduced trace (``trace``, traced runs only), ``window_s`` and, where
+the configuration names a question encoder, the program's own rows of the
+questions the comparison and the work count read (``query_rows``:
+{"triple": {question: row}, "passage": {...}})."""

@@ -1,11 +1,15 @@
 """Closed loop with one caller: each call hands an entry point of the port
 (``HippoRAG.retrieve`` or ``retrieve_dpr``) ``questions_per_call`` questions
 never asked before, and the next call starts when it returns. Before each
-call the harness makes its questions and their vectors, the inputs an
-evaluation run embeds up front; that is outside the call's time. The
-window is the calls: they run until ``--seconds`` have passed, the last
-call ends it, and ``retrieve_qps`` is the questions they answered over
-their summed wall time.
+call the harness makes its questions and, unless the configuration names a
+question encoder, their vectors, the inputs an evaluation run embeds up
+front; that is outside the call's time. A named encoder runs inside the
+call. The window is the calls: they run until ``--seconds`` have passed,
+the last call ends it, and ``retrieve_qps`` is the questions they answered
+over their summed wall time. With an encoder, after the window, the
+program's own fact and passage rows of the sampled questions (and, in a
+traced run, of every question of the window, for the work counted) are
+kept for the comparison (``query_rows``).
 
 Traffic keys: ``entry``, ``questions_per_call``, ``sample`` (answers
 judged).
@@ -63,7 +67,7 @@ class Driver:
         answered = sum(len(c["questions"]) for c in calls)
         print(f"perfbench: {len(calls)} calls, {window_s:.3f} s in calls of {calls[-1]['t1'] - start:.3f} s",
               file=sys.stderr)
-        return {
+        out = {
             "e2e": {"retrieve_qps": answered / window_s},
             "attempted": answered,
             "failed": 0,
@@ -75,6 +79,12 @@ class Driver:
             "trace": window.reduce() if window is not None and window.prof is not None else None,
             "window_s": window_s,
         }
+        if ctx.dep.encoder is not None:
+            asked = [s.question for s in sample.items]
+            if ctx.trace:
+                asked += [q for c in calls for q in c["questions"]]
+            out["query_rows"] = ctx.dep.query_rows(asked)
+        return out
 
     def close(self) -> None:
         pass

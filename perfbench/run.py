@@ -8,12 +8,18 @@ cell's deployment of ``hipporag_tpu_torch`` from the seed, warms up its
 shapes (set-up), drives its traffic for ``--seconds``, judges a sample of
 the answers against the plain reference (``reference/``), and prints one
 JSON line last on standard output. ``--trace 1`` profiles a sub-window and
-reports the cell's per-layer metrics instead of its end-to-end ones.
+reports the cell's per-layer metrics instead of its end-to-end ones; its
+``breakdown`` gives, beside the longest device operations and idle gaps,
+the device seconds of the kernels launched inside each ``retrieve/*``
+range (``range_device_s``) and the profiled calls' least seconds by stage
+(``least_s``).
 
 Everything is found by name: the cell in ``BENCHMARK.json``, its
 configuration file, ``traffic/<traffic>.json`` (whose ``driver`` key names
 ``drivers/<driver>.py``), ``workloads/<cell>.json`` (the cell's own
-parameters and the limits of its comparison) and ``metrics/<metric>.py``.
+parameters and the limits of its comparison), ``metrics/<metric>.py`` and,
+where the configuration names a question encoder (``query_encoder``),
+``encoders/<name>.py`` and its reference ``reference/encoders/<name>.py``.
 It fails, printing no result, without a CUDA device or with fewer than the
 cell asks for, and if JAX or the JAX package is loaded.
 """
@@ -145,10 +151,16 @@ def execute(manifest: dict, name: str, seed: int, seconds: float, trace: bool, d
         torch.cuda.empty_cache()
 
     t_ref = time.perf_counter()
-    ref, query_vecs = reference_for(config, corpus, device)
+    ref, query_rows = reference_for(config, corpus, device, out.get("query_rows"))
     answers = out["answers"]
-    numbers = check.judge(ref, query_vecs([a["question"] for a in answers]), answers,
-                          graph=params.get("entry", "retrieve") == "retrieve")
+    questions = [a["question"] for a in answers]
+    fact_rows, passage_rows = query_rows(questions)
+    numbers = check.judge(ref, fact_rows, passage_rows, answers, graph=params.get("entry", "retrieve") == "retrieve")
+    if config.get("query_encoder"):
+        from perfbench.reference import encoders
+
+        numbers["embed_err"] = check.embed_err((fact_rows, passage_rows),
+                                               encoders.rows(config, seed, questions, device))
     correct, rows = check.verdict(numbers, limits)
     print(f"perfbench: judged {len(answers)} answers in {time.perf_counter() - t_ref:.1f} s; reference graph "
           f"{ref.graph.num_nodes} nodes, {ref.graph.num_entries} entries, {len(ref.graph.facts)} facts, "
@@ -162,9 +174,10 @@ def execute(manifest: dict, name: str, seed: int, seconds: float, trace: bool, d
     if trace:
         t_work = time.perf_counter()
         calls = out["calls"]
-        stages = work.call_stages(ref, calls, config, query_vecs)
+        stages = work.call_stages(ref, calls, config, query_rows)
+        traced_stages = [st for st, c in zip(stages, calls) if c["traced"]]
         mctx = Context(counters=out["counters"], trace=out["trace"], window_s=out["window_s"], stages=stages,
-                       traced_stages=[st for st, c in zip(stages, calls) if c["traced"]])
+                       traced_stages=traced_stages)
         metrics = {}
         for m in manifest["per_layer"]:
             if applies(m, name):
@@ -174,7 +187,12 @@ def execute(manifest: dict, name: str, seed: int, seconds: float, trace: bool, d
         print(f"perfbench: work counted in {time.perf_counter() - t_work:.1f} s", file=sys.stderr)
         t = out["trace"] or {"busy_s": 0.0, "window_s": 0.0, "device_ops": [], "idle_gaps": []}
         device_info.update(busy_s=t["busy_s"], window_s=t["window_s"])
-        result["breakdown"] = {"device_ops": t["device_ops"], "idle_gaps": t["idle_gaps"]}
+        least = {}
+        for st in traced_stages:
+            for stage, seconds in st.items():
+                least[stage] = least.get(stage, 0.0) + seconds
+        result["breakdown"] = {"device_ops": t["device_ops"], "idle_gaps": t["idle_gaps"],
+                               "range_device_s": largest(t.get("range_device_s", {})), "least_s": largest(least)}
     else:
         metrics = {m["name"]: {"value": float(out["e2e"][m["name"]]), "unit": m["unit"]}
                    for m in manifest["end_to_end"] if applies(m, name) and m["name"] != "setup_s"}
@@ -185,10 +203,22 @@ def execute(manifest: dict, name: str, seed: int, seconds: float, trace: bool, d
     return result, rows
 
 
-def reference_for(config: dict, corpus, device):
-    """(float64 plain reference over ``corpus``, question texts -> float64
-    query rows) for ``config``."""
+def largest(seconds: dict, top: int = 10) -> list:
+    """[[name, seconds], ...] of the ``top`` largest, largest first."""
+    return [[name, value] for name, value in sorted(seconds.items(), key=lambda kv: -kv[1])[:top]]
+
+
+def reference_for(config: dict, corpus, device, program_rows: dict = None):
+    """(float64 plain reference over ``corpus``, ``query_rows``) for
+    ``config``. ``query_rows(questions)`` gives the float64 (fact rows,
+    passage rows) the timed path used: the hashing rows for both, or, where
+    the configuration names a question encoder, the program's own rows
+    ``program_rows`` ({"triple": {question: row}, "passage": {...}})."""
+    import numpy as np
+    import torch
+
     from perfbench import vectors
+    from perfbench.reference.encoders import KINDS
     from perfbench.reference.retrieval import Reference
 
     dim = int(config["index_vectors"]["dim"])
@@ -196,10 +226,14 @@ def reference_for(config: dict, corpus, device):
     def embed(texts):
         return vectors.embed_texts(texts, dim, device)
 
-    def query_vecs(qs):
-        return embed(qs).double()
+    def query_rows(qs):
+        if program_rows is None:
+            rows = embed(qs).double()
+            return rows, rows
+        return tuple(torch.from_numpy(np.stack([program_rows[kind][q] for q in qs])).to(device, torch.float64)
+                     for kind in KINDS)
 
-    return Reference(corpus.openie(), config["hipporag"], embed, device), query_vecs
+    return Reference(corpus.openie(), config["hipporag"], embed, device), query_rows
 
 
 def main(argv=None) -> int:

@@ -30,12 +30,14 @@ def test_harness_loads_no_jax():
     readers = sorted(glob.glob(os.path.join(BENCH, "metrics", "*.*.py")))
     code = ("import perfbench.run as run, perfbench.control, perfbench.drivers.batch\n"
             "import perfbench.deployment, perfbench.adapters, perfbench.work, perfbench.trace\n"
+            "import perfbench.encoders.bert\n"
             f"for i, p in enumerate({readers!r}):\n    run.load_file_module(p, 'reader%d' % i)\n")
     assert not _loaded_after(code) & FORBIDDEN
 
 
 def test_reference_loads_nothing_of_the_port():
-    code = "import perfbench.reference.retrieval, perfbench.check, perfbench.roofline\n"
+    code = ("import perfbench.reference.retrieval, perfbench.check, perfbench.roofline\n"
+            "import perfbench.reference.encoders.bert\n")
     loaded = _loaded_after(code)
     assert not loaded & (FORBIDDEN | {"hipporag_tpu_torch"})
 

@@ -108,6 +108,14 @@ def test_every_name_resolves_to_a_file():
         assert os.path.isfile(os.path.join(bench, "drivers", params["driver"] + ".py"))
         assert limits and all(v >= 0 for v in limits.values())
         assert config["index_vectors"]["dim"] == config["hipporag"]["embedding_dim"]
+    from tiny import encoder_spec
+
+    for config in [run.cell_spec(m, w["name"])[1] for w in m["workloads"]] + [encoder_spec()[1]]:
+        if config.get("query_encoder"):
+            name = config["query_encoder"]
+            assert os.path.isfile(os.path.join(bench, "encoders", name + ".py")), name
+            assert os.path.isfile(os.path.join(bench, "reference", "encoders", name + ".py")), name
+            assert config["hidden_size"] == config["index_vectors"]["dim"]
     for x in m["per_layer"]:
         assert os.path.isfile(os.path.join(bench, "metrics", x["name"] + ".py")), x["name"]
 

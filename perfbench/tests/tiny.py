@@ -37,3 +37,24 @@ def tiny_spec(cell: str, passages: int = 400, **params):
     traffic = dict(traffic, sample=48, questions_per_call=64)
     traffic.update(params)
     return cell_entry, config, traffic, dict(limits)
+
+
+# A configuration whose questions the ``bert`` pair encodes inside the
+# timed call (``encoders/bert.py``), parked as ``.dpr`` is: nvembed2-musique's
+# corpus and settings at the encoder's width.
+ENCODER_CELL = "bert-tiny-musique.batch"
+BERT_TINY = {"query_encoder": "bert", "hidden_size": 256, "num_hidden_layers": 2, "num_attention_heads": 4,
+             "intermediate_size": 1024, "vocab_size": 30522, "max_position_embeddings": 512,
+             "layer_norm_eps": 1e-12, "hidden_act": "gelu_new", "torch_dtype": "float32"}
+ENCODER_LIMITS = {"embed_err": 1e-5}
+
+
+def encoder_spec(passages: int = 400, **params):
+    """The parked encoder cell's spec, cut as ``tiny_spec`` cuts a cell."""
+    cell, config, traffic, limits = tiny_spec("nvembed2-musique.batch", passages, **params)
+    config = dict(config, name="bert-tiny-musique", **BERT_TINY)
+    dim = config["hidden_size"]
+    config["index_vectors"] = dict(config["index_vectors"], dim=dim)
+    config["hipporag"] = dict(config["hipporag"], embedding_dim=dim, embedding_model_name="bert-tiny")
+    cell = dict(cell, name=ENCODER_CELL, config=config["name"])
+    return cell, config, traffic, dict(limits, **ENCODER_LIMITS)

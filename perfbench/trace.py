@@ -4,10 +4,13 @@ from it.
 The trace is written to a temporary file, read back and reduced in the
 same process, then deleted. From it come the device's busy time (the union
 of kernel, copy and set intervals), the longest device operations, the idle
-gaps labelled by the innermost host operation running across them, and the
-kernels launched inside each ``retrieve/graph_search`` range: a kernel
-belongs to a range when the runtime call that launched it (matched by its
-correlation id) ran inside the range on the same host thread.
+gaps labelled by the innermost host operation running across them, the
+kernels launched inside each ``retrieve/graph_search`` range, and, for
+every ``retrieve/*`` range name, the device seconds of the kernels
+launched inside ranges of that name (``range_device_s``). A kernel belongs
+to a range when the runtime call that launched it (matched by its
+correlation id) ran inside the range on the same host thread; it counts in
+every range that encloses its launch.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation")
 GRAPH_SEARCH = "retrieve/graph_search"
+STAGE_PREFIX = "retrieve/"
 
 
 def merged(intervals):
@@ -99,9 +103,13 @@ def reduce_events(events, window_s: float, top: int = 10) -> dict:
         by_name[e["name"]] += float(e["dur"]) * 1e-6
 
     ranges = defaultdict(list)
+    stages = defaultdict(list)  # host thread -> (start, end, name) of its retrieve/* ranges
     for e in events:
-        if e.get("cat") == "user_annotation" and e.get("name") == GRAPH_SEARCH:
-            ranges[e.get("tid")].append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith(STAGE_PREFIX):
+            span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            stages[e.get("tid")].append((*span, e["name"]))
+            if e["name"] == GRAPH_SEARCH:
+                ranges[e.get("tid")].append(span)
     launches = {}
     for e in events:
         corr = (e.get("args") or {}).get("correlation")
@@ -113,6 +121,14 @@ def reduce_events(events, window_s: float, top: int = 10) -> dict:
         return launch is not None and any(s <= launch[1] <= t for s, t in ranges.get(launch[0], ()))
 
     kernels = [(e["name"], float(e["dur"]) * 1e-6, in_range(e)) for e in dev if e.get("cat") == "kernel"]
+
+    range_device = defaultdict(float)
+    for e in dev:
+        launch = launches.get((e.get("args") or {}).get("correlation"))
+        if e.get("cat") != "kernel" or launch is None:
+            continue
+        for name in {n for s, t, n in stages.get(launch[0], ()) if s <= launch[1] <= t}:
+            range_device[name] += float(e["dur"]) * 1e-6
 
     host = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
                   if e.get("cat") in HOST_CATS)
@@ -138,4 +154,5 @@ def reduce_events(events, window_s: float, top: int = 10) -> dict:
         "idle_gaps": ranked(gaps),
         "kernels": kernels,
         "graph_search_ranges_s": [(t - s) * 1e-6 for rs in ranges.values() for s, t in rs],
+        "range_device_s": dict(range_device),
     }
