@@ -5,9 +5,11 @@ model's published widths, without a cell of its own in BENCHMARK.json.
     python3 perfbench/encoder_probe.py --encoder bert --seeds 11,12 \
         [--seconds 20] [--trace-seeds 11] [--control-seeds 11,12,13]
 
-The spec is ``nvembed2-musique.batch``'s, with the encoder's sizes
-(``SIZES``) added to its configuration and the index vectors made at the
-encoder's width; its limits are the cell's and the encoder's (``LIMITS``).
+The spec is ``nvembed2-musique.batch``'s, with the published sizes that
+the encoder's module states (``encoders/<name>.py``'s ``PUBLISHED``) added
+to its configuration and the index vectors made at the encoder's width;
+its limits are the cell's and the module's ``PROBE_LIMITS``. Any encoder
+whose module states both can be probed.
 Each seed is one run of ``run.execute`` (traced for ``--trace-seeds``),
 each control seed one ``control.control_numbers`` at the traffic's sample
 size, all in this one process. One JSON line per run: the result, and for
@@ -32,31 +34,34 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from perfbench import run  # noqa: E402  (sets the build and cache directories first)
 
 CELL = "nvembed2-musique.batch"
-# google-bert/bert-base-uncased's config.json; the port computes the tanh GELU
-# (``gelu_new``) and its encoder serves bfloat16 products by default
-SIZES = {
-    "bert": {"hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
-             "vocab_size": 30522, "max_position_embeddings": 512, "layer_norm_eps": 1e-12,
-             "hidden_act": "gelu_new", "torch_dtype": "bfloat16"},
-}
-# set between sound runs' largest reading and the control's smallest (PERF.md)
-LIMITS = {"bert": {"embed_err": 0.02}}
+
+
+def encoder_names() -> list:
+    """The encoders with a module under ``encoders/``."""
+    return sorted(f[:-3] for f in os.listdir(os.path.join(run.BENCH, "encoders"))
+                  if f.endswith(".py") and f != "__init__.py")
 
 
 def spec_for(manifest: dict, encoder: str):
+    from perfbench.encoders import load
+
+    module = load(encoder)
+    if not hasattr(module, "PUBLISHED"):
+        raise SystemExit(f"encoder_probe: encoders/{encoder}.py states no PUBLISHED sizes")
     cell, config, params, limits = run.cell_spec(manifest, CELL)
     config = copy.deepcopy(config)
-    config.update(SIZES[encoder], query_encoder=encoder, name=f"{config['name']}-{encoder}")
+    config.update(module.PUBLISHED, query_encoder=encoder, name=f"{config['name']}-{encoder}")
     dim = config["hidden_size"]
     config["index_vectors"]["dim"] = dim
     config["hipporag"]["embedding_dim"] = dim
     name = f"{config['name']}.{cell['traffic']}"
-    return name, (dict(cell, name=name, config=config["name"]), config, params, dict(limits, **LIMITS[encoder]))
+    return name, (dict(cell, name=name, config=config["name"]), config, params,
+                  dict(limits, **module.PROBE_LIMITS))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--encoder", required=True, choices=sorted(SIZES))
+    ap.add_argument("--encoder", required=True, choices=encoder_names())
     ap.add_argument("--seeds", default="")
     ap.add_argument("--trace-seeds", default="")
     ap.add_argument("--control-seeds", default="")

@@ -27,6 +27,21 @@ PRECISION = {"bfloat16": "bf16", "float32": "tf32"}
 # its embedding name gives
 ROUTE = {"vocab_size": 30522, "max_position_embeddings": 512}
 
+# The sizes at which the CPU tests run the pair, whatever widths a
+# configuration states: a third of BERT-base's width in two layers, heads
+# of 64 and an MLP of four widths as the route builds them, in float32.
+TINY = {"hidden_size": 256, "num_hidden_layers": 2, "num_attention_heads": 4, "intermediate_size": 1024,
+        **ROUTE, "layer_norm_eps": 1e-12, "hidden_act": "gelu_new", "torch_dtype": "float32"}
+# set between 6 CPU seeds' 1.68e-7 to 2.04e-7 and the TF32 control's 7.2e-5 (PERF.md)
+TINY_LIMITS = {"embed_err": 1e-5}
+# google-bert/bert-base-uncased's config.json, which the encoder probe runs;
+# the port computes the tanh GELU (``gelu_new``) and its encoder serves
+# bfloat16 products by default
+PUBLISHED = {"hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+             **ROUTE, "layer_norm_eps": 1e-12, "hidden_act": "gelu_new", "torch_dtype": "bfloat16"}
+# set between the probe's sound runs' largest reading and the control's smallest (PERF.md)
+PROBE_LIMITS = {"embed_err": 0.02}
+
 
 def embedding_name(config: dict) -> str:
     """The port's embedding name for ``config``'s encoder; refuses widths

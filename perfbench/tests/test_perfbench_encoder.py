@@ -11,9 +11,10 @@ import pytest
 import torch
 
 from test_perfbench_runs import _swap_first_two
-from tiny import ENCODER_CELL, ENCODER_LIMITS, encoder_spec, manifest, tiny_spec
+from tiny import ENCODER_CELL, encoder_spec, manifest, tiny_spec
 
 from perfbench import check, run, work
+from perfbench.encoders.bert import TINY_LIMITS
 
 SEED = 2**31 + 4242
 
@@ -52,9 +53,9 @@ def test_an_encoder_run_is_correct_and_reports_embed_err():
     result, rows = _run()
     numbers = {name: value for name, value, _limit in rows}
     assert result["correct"], rows
-    assert 0 <= numbers["embed_err"] <= ENCODER_LIMITS["embed_err"] / 5
+    assert 0 <= numbers["embed_err"] <= TINY_LIMITS["embed_err"] / 5
     assert numbers["malformed"] == 0 and numbers["fact_gap"] <= 1e-6 and numbers["rank_gap"] <= 1e-6
-    assert result["checks"]["embed_err"]["limit"] == ENCODER_LIMITS["embed_err"]
+    assert result["checks"]["embed_err"]["limit"] == TINY_LIMITS["embed_err"]
     assert list(result["checks"])[-1] == "embed_err"
 
 
@@ -94,7 +95,7 @@ def test_a_broken_encoder_is_caught_by_embed_err(monkeypatch, module, name, faul
     monkeypatch.setattr(mod, name, fault(getattr(mod, name)))
     result, rows = _run()
     assert not result["correct"], rows
-    assert result["checks"]["embed_err"]["value"] > ENCODER_LIMITS["embed_err"], rows
+    assert result["checks"]["embed_err"]["value"] > TINY_LIMITS["embed_err"], rows
 
 
 def test_a_symmetric_encoder_gives_one_row_for_both_instructions():
@@ -131,7 +132,7 @@ def test_a_ranking_fault_is_caught_on_an_encoder_config(monkeypatch):
     monkeypatch.setattr(hipporag, "rank_documents_topk", _swap_first_two(hipporag.rank_documents_topk))
     result, rows = _run()
     assert not result["correct"], rows
-    assert result["checks"]["embed_err"]["value"] <= ENCODER_LIMITS["embed_err"]
+    assert result["checks"]["embed_err"]["value"] <= TINY_LIMITS["embed_err"]
     assert result["checks"]["rank_gap"]["value"] > result["checks"]["rank_gap"]["limit"]
 
 
@@ -256,3 +257,78 @@ def test_range_device_s_from_a_synthetic_trace():
                                                               ("k", False), ("k", False)]
     # the copy and the other thread's kernel lie inside the first kernel
     assert t["busy_s"] == pytest.approx((40 + 10 + 20 + 5 + 8) * 1e-6)
+
+
+def test_the_tiny_encoder_spec_is_the_modules_cut():
+    """The parked encoder configuration runs at ``encoders/bert.py``'s tiny
+    sizes: 256 wide in 2 layers of 4 heads, float32, ``embed_err`` 1e-5."""
+    _cell, config, _params, limits = encoder_spec()
+    assert {k: config[k] for k in ("hidden_size", "num_hidden_layers", "num_attention_heads", "intermediate_size",
+                                   "torch_dtype")} == {"hidden_size": 256, "num_hidden_layers": 2,
+                                                       "num_attention_heads": 4, "intermediate_size": 1024,
+                                                       "torch_dtype": "float32"}
+    assert config["index_vectors"]["dim"] == config["hipporag"]["embedding_dim"] == 256
+    assert limits["embed_err"] == TINY_LIMITS["embed_err"] == 1e-5
+
+
+def test_tiny_spec_cuts_only_the_corpus_and_traffic_without_an_encoder():
+    from tiny import PARKED
+
+    for cell in [w["name"] for w in manifest()["workloads"]] + [w["name"] for w in PARKED]:
+        full = run.cell_spec(manifest(parked=True), cell)
+        cut = tiny_spec(cell)
+        if full[1].get("query_encoder"):
+            continue
+        assert dict(cut[1], corpus=None) == dict(full[1], corpus=None)
+        assert dict(cut[1]["corpus"], passages=None) == dict(full[1]["corpus"], passages=None)
+        assert cut[3] == full[3]
+
+
+def test_tiny_spec_cuts_an_encoder_cell_to_its_modules_sizes():
+    """A cell whose configuration names an encoder at any widths runs on the
+    CPU at its module's ``TINY`` sizes and ``TINY_LIMITS``."""
+    from perfbench.encoders import bert
+    from tiny import cut_encoder
+
+    _cell, config, _params, limits = tiny_spec("nvembed2-musique.batch")
+    wide = dict(config, query_encoder="bert", **bert.PUBLISHED)
+    cut, cut_limits = cut_encoder(wide, dict(limits, embed_err=0.02))
+    assert {k: cut[k] for k in bert.TINY} == bert.TINY
+    assert cut["index_vectors"]["dim"] == cut["hipporag"]["embedding_dim"] == bert.TINY["hidden_size"]
+    assert cut_limits == dict(limits, **bert.TINY_LIMITS)
+    assert wide["hidden_size"] == 768 and config["index_vectors"]["dim"] == 4096  # the inputs are left as they were
+
+
+def test_every_encoder_module_states_its_cpu_cut():
+    from perfbench.encoder_probe import encoder_names
+    from perfbench.encoders import load
+
+    names = encoder_names()
+    assert "bert" in names
+    for name in names:
+        module = load(name)
+        assert "torch_dtype" in module.TINY and int(module.TINY["num_hidden_layers"]) >= 2, name
+        assert "embed_err" in module.TINY_LIMITS, name
+        if hasattr(module, "PUBLISHED"):
+            assert set(module.PUBLISHED) == set(module.TINY) and "embed_err" in module.PROBE_LIMITS, name
+
+
+def test_the_probe_builds_its_spec_from_the_module():
+    """``encoder_probe.py --encoder bert``: the batch cell with BERT-base's
+    published sizes in bf16, index vectors at 768, ``embed_err`` 0.02."""
+    from perfbench import encoder_probe
+    from perfbench.encoders import bert
+
+    name, (cell, config, params, limits) = encoder_probe.spec_for(manifest(), "bert")
+    full = run.cell_spec(manifest(), encoder_probe.CELL)
+    assert name == cell["name"] == "nvembed2-musique-bert.batch" and cell["config"] == "nvembed2-musique-bert"
+    assert {k: config[k] for k in bert.PUBLISHED} == bert.PUBLISHED
+    assert {k: config[k] for k in ("hidden_size", "num_hidden_layers", "num_attention_heads", "intermediate_size",
+                                   "hidden_act", "torch_dtype")} == {"hidden_size": 768, "num_hidden_layers": 12,
+                                                                     "num_attention_heads": 12,
+                                                                     "intermediate_size": 3072,
+                                                                     "hidden_act": "gelu_new",
+                                                                     "torch_dtype": "bfloat16"}
+    assert config["query_encoder"] == "bert"
+    assert config["index_vectors"]["dim"] == config["hipporag"]["embedding_dim"] == 768
+    assert params == full[2] and limits == dict(full[3], embed_err=0.02)

@@ -92,6 +92,8 @@ def test_cells_and_metrics_fit_together():
         assert reports(e2e["setup_s"], cell)
         assert any(reports(x, cell) for n, x in e2e.items() if n != "setup_s")
         assert any(reports(x, cell) for x in m["per_layer"])
+        # its own whole-step share, which bounds any kernel's gain there
+        assert len([x for x in m["per_layer"] if x["name"].startswith("step_mfu") and reports(x, cell)]) == 1, cell
     layers = {}
     for x in m["per_layer"]:
         layers.setdefault(x["name"].split(".")[0], set()).add(x["layer"])

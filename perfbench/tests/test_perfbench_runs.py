@@ -38,11 +38,19 @@ def test_the_reference_agrees_with_the_port(cell):
     assert set(result["metrics"]) >= {"setup_s"} and all(v["value"] > 0 for v in result["metrics"].values())
 
 
+def _step_mfu(cell):
+    """The name of the cell's own whole-step share."""
+    names = [x["name"] for x in manifest()["per_layer"] if x["name"].startswith("step_mfu") and run.applies(x, cell)]
+    assert len(names) == 1, (cell, names)
+    return names[0]
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_traced_run_reads_its_metrics(cell):
     result, _rows = _run(cell, trace=True)
     assert result["correct"]
-    assert "step_mfu.batch" in result["metrics"] and result["metrics"]["step_mfu.batch"]["value"] > 0
+    mfu = _step_mfu(cell)
+    assert mfu in result["metrics"] and result["metrics"][mfu]["value"] > 0
     assert result["device"]["window_s"] > 0 and "breakdown" in result
 
 

@@ -28,7 +28,9 @@ def manifest(parked: bool = False) -> dict:
 
 
 def tiny_spec(cell: str, passages: int = 400, **params):
-    """The cell's spec, cut to run in seconds on the CPU: fewer passages."""
+    """The cell's spec, cut to run in seconds on the CPU: fewer passages and
+    questions, and the question encoder the configuration names, if any, at
+    the sizes its module states for the CPU (``cut_encoder``)."""
     from perfbench import run
 
     cell_entry, config, traffic, limits = run.cell_spec(manifest(parked=True), cell)
@@ -36,25 +38,37 @@ def tiny_spec(cell: str, passages: int = 400, **params):
     config["corpus"]["passages"] = passages
     traffic = dict(traffic, sample=48, questions_per_call=64)
     traffic.update(params)
-    return cell_entry, config, traffic, dict(limits)
+    config, limits = cut_encoder(config, dict(limits))
+    return cell_entry, config, traffic, limits
+
+
+def cut_encoder(config: dict, limits: dict) -> tuple:
+    """(configuration, limits) with the encoder that ``query_encoder`` names
+    at its module's ``TINY`` keys, the index vectors at that width, and the
+    module's ``TINY_LIMITS`` in place of the cell's; unchanged without the key."""
+    if not config.get("query_encoder"):
+        return config, limits
+    from perfbench.encoders import load
+
+    module = load(config["query_encoder"])
+    config = dict(config, **module.TINY)
+    dim = config["hidden_size"]
+    config["index_vectors"] = dict(config["index_vectors"], dim=dim)
+    config["hipporag"] = dict(config["hipporag"], embedding_dim=dim)
+    return config, dict(limits, **module.TINY_LIMITS)
 
 
 # A configuration whose questions the ``bert`` pair encodes inside the
 # timed call (``encoders/bert.py``), parked as ``.dpr`` is: nvembed2-musique's
-# corpus and settings at the encoder's width.
+# corpus and settings with that encoder, cut as every encoder cell is.
 ENCODER_CELL = "bert-tiny-musique.batch"
-BERT_TINY = {"query_encoder": "bert", "hidden_size": 256, "num_hidden_layers": 2, "num_attention_heads": 4,
-             "intermediate_size": 1024, "vocab_size": 30522, "max_position_embeddings": 512,
-             "layer_norm_eps": 1e-12, "hidden_act": "gelu_new", "torch_dtype": "float32"}
-ENCODER_LIMITS = {"embed_err": 1e-5}
 
 
 def encoder_spec(passages: int = 400, **params):
     """The parked encoder cell's spec, cut as ``tiny_spec`` cuts a cell."""
     cell, config, traffic, limits = tiny_spec("nvembed2-musique.batch", passages, **params)
-    config = dict(config, name="bert-tiny-musique", **BERT_TINY)
-    dim = config["hidden_size"]
-    config["index_vectors"] = dict(config["index_vectors"], dim=dim)
-    config["hipporag"] = dict(config["hipporag"], embedding_dim=dim, embedding_model_name="bert-tiny")
+    config = dict(config, name="bert-tiny-musique", query_encoder="bert")
+    config["hipporag"] = dict(config["hipporag"], embedding_model_name="bert-tiny")
+    config, limits = cut_encoder(config, limits)
     cell = dict(cell, name=ENCODER_CELL, config=config["name"])
-    return cell, config, traffic, dict(limits, **ENCODER_LIMITS)
+    return cell, config, traffic, limits
