@@ -556,6 +556,13 @@ class HippoRAG:
         self.entity_node_keys = list(self.entity_embedding_store.get_all_ids())
         self.passage_node_keys = list(self.chunk_embedding_store.get_all_ids())
         self.fact_node_keys = list(self.fact_embedding_store.get_all_ids())
+        # passage-aligned tables for result building (index and delete reset
+        # ready_to_retrieve, so they are rebuilt with passage_node_keys)
+        rows = self.chunk_embedding_store.get_rows(self.passage_node_keys)
+        self._passage_contents = np.array([rows[k]["content"] for k in self.passage_node_keys], dtype=object)
+        self._passage_metadata = np.array(
+            [self.chunk_metadata.get(k, {}) for k in self.passage_node_keys], dtype=object
+        )
 
         # self-heal: make sure every store node exists in the graph
         self.graph.register_nodes(self.entity_node_keys)
@@ -958,22 +965,7 @@ class HippoRAG:
                     sorted_scores = sorted_dev.cpu().numpy()
 
             with span("retrieve/build_result", parent=call, bucket=bucket_no, results=b_real):
-                out = []
-                for i in range(b_real):
-                    top_n = [
-                        int(j)
-                        for j, v in zip(order[i], sorted_scores[i])
-                        if j < num_passages and v > -np.inf
-                    ]
-                    out.append(
-                        self._build_result(
-                            batch_queries[i],
-                            top_n,
-                            sorted_scores[i][: len(top_n)],
-                            batch_top_facts[i],
-                        )
-                    )
-            return out
+                return self._build_results(batch_queries, order, sorted_scores, batch_top_facts)
 
         return self._run_bucket_pipeline(slices, prep, finish)
 
@@ -1058,29 +1050,37 @@ class HippoRAG:
                     order = np.argsort(-doc_scores, axis=1, kind="stable")
 
             with span("retrieve/build_result", parent=call, bucket=bucket_no, results=b_real):
-                out = []
-                for i in range(b_real):
-                    top_n = order[i][:num_to_retrieve]
-                    out.append(
-                        self._build_result(
-                            batch_queries[i], top_n, doc_scores[i][top_n], batch_top_facts[i],
-                        )
-                    )
-            return out
+                top_n = order[:, :num_to_retrieve]
+                return self._build_results(
+                    batch_queries, top_n, np.take_along_axis(doc_scores, top_n, axis=1), batch_top_facts
+                )
 
         return self._run_bucket_pipeline(slices, prep, finish)
 
-    def _build_result(self, query, doc_indices, doc_scores, graph_seeds) -> QuerySolution:
-        keys = [self.passage_node_keys[j] for j in doc_indices]
-        docs = [self.chunk_embedding_store.get_row(k)["content"] for k in keys]
-        metadata = [dict(self.chunk_metadata.get(k, {})) for k in keys]
-        return QuerySolution(
-            question=query,
-            docs=docs,
-            doc_scores=np.asarray(doc_scores, dtype=np.float64),
-            doc_metadata=metadata,
-            graph_seeds=list(graph_seeds),
-        )
+    def _build_results(self, queries, order, scores, graph_seeds) -> List[QuerySolution]:
+        """One ``QuerySolution`` per question of a bucket from its ranking:
+        ``order`` and ``scores`` are ``[b, k]`` (``b`` at least
+        ``len(queries)``, padding rows ignored), best first. A question keeps
+        the passages whose index is a real passage and whose score is above
+        -inf, and the first that many scores of its row; each result owns
+        its arrays, lists and metadata dicts. Counts the passages placed as
+        ``docs`` on the open span."""
+        b = len(queries)
+        order, scores = np.asarray(order)[:b], np.asarray(scores)[:b]
+        valid = (order < len(self._passage_contents)) & (scores > -np.inf)
+        scores = scores.astype(np.float64)
+        out = []
+        for i, query in enumerate(queries):
+            idx = order[i][valid[i]]
+            out.append(QuerySolution(
+                question=query,
+                docs=self._passage_contents[idx].tolist(),
+                doc_scores=scores[i, : len(idx)].copy(),
+                doc_metadata=list(map(dict, self._passage_metadata[idx])),
+                graph_seeds=list(graph_seeds[i]),
+            ))
+        count("docs", int(valid.sum()))
+        return out
 
     # ==================================================================
     # Dense passage retrieval (no graph search)
@@ -1148,7 +1148,7 @@ class HippoRAG:
                     qp[i] = self.query_to_embedding["passage"][q]
                 scores = self._dpr_normalized_scores(qp, num_passages)[: len(part), :num_passages]
                 vals, order = (t.cpu().numpy() for t in topk_lower_index(scores, k))
-                results += [self._build_result(q, order[i], vals[i], []) for i, q in enumerate(part)]
+                results += self._build_results(part, order, vals, [()] * len(part))
 
         if gold_docs is not None:
             evaluator = RetrievalRecall(self.global_config)

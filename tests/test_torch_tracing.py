@@ -5,7 +5,7 @@ A ``retrieve`` under ``recording()`` gives one call's tree of stage spans,
 serially, with the filter pipelined on worker threads and on a mesh of
 virtual shards; with recording off it records nothing and opens no
 profiler range; under a profiler every span is a ``user_annotation`` of
-its name at the same time. The PageRank solvers count per tile the
+its name at the same time. Result building counts the passages it places. The PageRank solvers count per tile the
 iterations they return, and rankings do not depend on recording.
 """
 
@@ -64,9 +64,10 @@ def sharded(tmp_path_factory, sample):
     return _indexed(tmp_path_factory, sample, "sharded", mesh_shape=(1, 2))
 
 
-def _check_call(recorded, queries):
+def _check_call(recorded, queries, results):
     """One call's spans: the stage names, one root and call id, parents
-    that enclose their children, and bucket attrs."""
+    that enclose their children, and bucket attrs; each bucket's
+    ``retrieve/build_result`` counts as ``docs`` the passages of its results."""
     by_id = {s.span_id: s for s in recorded}
     (root,) = [s for s in recorded if s.parent_id is None]
     assert root.name == "retrieve" and root.call_id == root.span_id
@@ -90,6 +91,11 @@ def _check_call(recorded, queries):
     assert sum(a["b_real"] for a in topk.values()) == len(queries)
     assert all(a["b_pad"] >= a["b_real"] for a in topk.values())
     assert built == {b: a["b_real"] for b, a in topk.items()}
+    placed = {s.attrs["bucket"]: s.attrs["docs"] for s in recorded if s.name == "retrieve/build_result"}
+    assert placed == {
+        b: sum(len(r.docs) for r in results[b * BUCKET : (b + 1) * BUCKET]) for b in range(n_buckets)
+    }
+    assert sum(placed.values()) > 0
     for s in recorded:
         if s.name == "retrieve/filter":
             assert s.attrs["candidates"] >= s.attrs["facts_kept"] > 0
@@ -113,7 +119,7 @@ def test_retrieve_records_one_call_of_stage_spans(single, sample, pipelined):
             on = rag.retrieve(queries)
     finally:
         rag.global_config.pipeline_rerank = False
-    _check_call(rec.spans(), queries)
+    _check_call(rec.spans(), queries, on)
     _same_rankings(on, off)
 
 
@@ -122,7 +128,7 @@ def test_the_sharded_path_records_the_same_stages(sharded, sample):
     assert rag._mesh is not None and rag._mesh.corpus == 2
     with recording() as rec:
         on = rag.retrieve(sample[1])
-    _check_call(rec.spans(), sample[1])
+    _check_call(rec.spans(), sample[1], on)
     _same_rankings(on, off)
 
 
@@ -184,7 +190,7 @@ def test_spans_lie_on_the_profiler_timeline(single, sample, monkeypatch, tmp_pat
     for attempt in range(3):
         on, recorded, starts = _profiled_call(rag, sample[1], tmp_path / f"trace-{attempt}.json")
         _same_rankings(on, off)
-        _check_call(recorded, sample[1])
+        _check_call(recorded, sample[1], on)
         assert sorted(_CountingRange.entered) == sorted(s.name for s in recorded)
         for s in recorded:
             assert len(starts[s.name]) == len([r for r in recorded if r.name == s.name]), s.name
