@@ -178,6 +178,7 @@ from hipporag_tpu_torch.parallel import (  # noqa: E402
     shard_graph_ell,
     sharded_ell_counters,
 )
+from hipporag_tpu_torch.parallel.backend import ShardedBackend  # noqa: E402
 
 from hipporag_tpu_torch.utils.timing import dropped_spans, recording, span  # noqa: E402
 from hipporag_tpu_torch.utils.timing import spans as logged_spans  # noqa: E402
@@ -1763,7 +1764,7 @@ def phase7_served(rag, parity):
     rag.prepare_retrieval_objects()
     sync()
     out["coo_prepare_s"] = time.perf_counter() - t0
-    graph = rag._index_state.graph
+    graph = rag._backend.index.graph
     check(type(graph) is COOGraph and graph.src.device.type == torch.device(rag.device).type,
           "phase 7d: the served index is not a COO operator on the card")
     fused_topk.SCAN_LAUNCHES.reset()
@@ -1818,7 +1819,7 @@ def phase7_sample(device):
                 got = coo_record(rag, data)
             launches = fused_topk.SCAN_LAUNCHES.count
             k2_path(f"phase7c_coo_sample_{dtype}", k2_since, kernel=False)
-            graph = rag._index_state.graph
+            graph = rag._backend.index.graph
             check(type(graph) is COOGraph and graph.src.device.type == torch.device(device).type,
                   f"phase 7c ({dtype}): not a COO operator on the card")
             check(launches > 0, f"phase 7c ({dtype}): retrieve did not launch the fused kernel")
@@ -2029,7 +2030,8 @@ def phase8_served(rag, parity):
     rag.prepare_retrieval_objects()
     sync()
     out["sharded_prepare_s"] = time.perf_counter() - t0
-    check(rag._mesh is not None and rag._mesh.corpus == SHARDS, "phase 8d: the sharded backend is not active")
+    check(isinstance(rag._backend, ShardedBackend) and rag._backend.mesh.corpus == SHARDS,
+          "phase 8d: the sharded backend is not active")
     t0 = time.perf_counter()
     sharded = rag.retrieve(parity, num_to_retrieve=cfg.retrieval_top_k)
     out["sharded_retrieve_s"] = time.perf_counter() - t0
@@ -2404,7 +2406,7 @@ def phase10_k2(device, bench_seed=K2_BENCH_SEED):
     t0 = time.perf_counter()
     with open(os.path.join(ROOT, "perfbench", "configs", "nvembed2-musique.json")) as fh:
         dep = Deployment(json.load(fh), bench_seed, device)
-    index = dep.rag._index_state
+    index = dep.rag._backend.index
     passages = index.passage_node_ids[:index.num_passages].cpu().numpy()
     graphs["benchmark"] = (index.graph, passages)
     log(f"phase 10: the benchmark's graph (seed {bench_seed}) built in {time.perf_counter() - t0:.1f} s")

@@ -12,11 +12,14 @@ package, with the device work in torch on an explicit ``device``:
   top-k documents.
 - **Dense retrieval** (``retrieve_dpr``, ``dense_passage_retrieval``):
   min-max-normalized query x passage scores and a top-k on the device.
-- **Multi-device** (``mesh_shape`` > 1): the embedding matrices and the
-  graph are corpus-sharded over a ("dp", "corpus") mesh of ``mesh_devices``
-  (``parallel/``): distributed top-k scoring, seeds on the mesh's first
-  device, the halo-exchange ELL PPR; the ``jax/`` encoder splits its
-  batches over the same devices.
+- **Back ends**: ``prepare_retrieval_objects`` builds the device state
+  once into one back end, which every retrieval entry point drives through
+  the same interface: ``DeviceBackend`` on one device, or, with
+  ``mesh_shape`` > 1, ``parallel/backend.ShardedBackend``, which
+  corpus-shards the embedding matrices and the graph over a ("dp",
+  "corpus") mesh of ``mesh_devices`` (distributed top-k scoring, seeds on
+  the mesh's first device, the halo-exchange ELL PPR); the ``jax/``
+  encoder splits its batches over the same devices.
 - **IRCoT** (``retrieve_ircot``, ``answer_with_ircot``): batched rounds of
   ``retrieve`` between reasoning steps.
 - **Delete** (``delete``): host-only bookkeeping of stores and graph
@@ -73,7 +76,7 @@ from .utils.timing import StageTimers, count, device_profile, span
 
 from .embedding import get_embedding_model
 from .graph import GraphBuilder, compile_device_graph, pick_capacity
-from .models.retrieval import RetrievalIndex, build_reset_batch, graph_search_batch, rank_documents_topk
+from .models.retrieval import RetrievalIndex, graph_search_batch, rank_documents_topk
 from .ops.knn import retrieve_knn_pairs
 from .ops.pagerank import ell_caps, ell_from_coo
 from .ops.scoring import (
@@ -108,6 +111,168 @@ def _fact_text(triple: Tuple[str, str, str]) -> str:
 
 def _parse_fact_text(text: str) -> Tuple[str, str, str]:
     return tuple(json.loads(text))
+
+
+def with_recall(config, results: List[QuerySolution], gold_docs, log_label: Optional[str] = None):
+    """``results``, or ``(results, overall recall@k)`` when ``gold_docs`` is
+    given, logged under ``log_label`` if one is named."""
+    if gold_docs is None:
+        return results
+    overall, _ = RetrievalRecall(config).calculate_metric_scores(
+        gold_docs, [r.docs for r in results], RETRIEVAL_K_LIST
+    )
+    if log_label:
+        logger.info("%s: %s", log_label, overall)
+    return results, overall
+
+
+def passage_tables(store, keys, chunk_metadata) -> Tuple[np.ndarray, np.ndarray]:
+    """The passage-aligned tables results are built from: each passage's
+    content and its metadata dict (object arrays in ``keys`` order)."""
+    rows = store.get_rows(keys)
+    contents = np.array([rows[k]["content"] for k in keys], dtype=object)
+    metadata = np.array([chunk_metadata.get(k, {}) for k in keys], dtype=object)
+    return contents, metadata
+
+
+def build_results(contents, metadata, queries, order, scores, graph_seeds=None) -> List[QuerySolution]:
+    """One ``QuerySolution`` per question of a bucket from its ranking:
+    ``order`` and ``scores`` are ``[b, k]`` (``b`` at least
+    ``len(queries)``, padding rows ignored), best first, over the
+    passage-aligned ``contents`` and ``metadata`` (:func:`passage_tables`).
+    A question keeps the passages whose index is a real passage and whose
+    score is above -inf, and the first that many scores of its row; each
+    result owns its arrays, lists and metadata dicts, and ``graph_seeds[i]``
+    as a list (``None`` without seeds). Counts the passages placed as
+    ``docs`` on the open span."""
+    b = len(queries)
+    order, scores = np.asarray(order)[:b], np.asarray(scores)[:b]
+    valid = (order < len(contents)) & (scores > -np.inf)
+    scores = scores.astype(np.float64)
+    out = []
+    for i, query in enumerate(queries):
+        idx = order[i][valid[i]]
+        out.append(QuerySolution(
+            question=query,
+            docs=contents[idx].tolist(),
+            doc_scores=scores[i, : len(idx)].copy(),
+            doc_metadata=list(map(dict, metadata[idx])),
+            graph_seeds=None if graph_seeds is None else list(graph_seeds[i]),
+        ))
+    count("docs", int(valid.sum()))
+    return out
+
+
+def stage_rows(rows: Dict[str, np.ndarray], queries: List[str], b_pad: int) -> np.ndarray:
+    """A bucket's [b_pad, D] float32 host rows: ``rows[q]`` for each
+    question, then zero rows as padding."""
+    staged = np.zeros((b_pad, np.shape(rows[queries[0]])[-1]), dtype=np.float32)
+    for i, q in enumerate(queries):
+        staged[i] = rows[q]
+    return staged
+
+
+def dense_topk(queries: List[str], rows: Dict[str, np.ndarray], dense_scores, num_passages: int, k: int,
+               sizes: List[int]):
+    """Dense retrieval of ``queries`` by their passage rows: per slice of
+    ``sizes[-1]`` questions, staged to the least of ``sizes`` that holds
+    it, ``dense_scores`` (the min-max-normalized [b_pad, >= num_passages]
+    device scores of staged rows) and the top ``k`` of the first
+    ``num_passages`` columns, ties to the lower index. Returns host arrays
+    (values [n, k], indices [n, k])."""
+    bucket = sizes[-1]
+    vals, idx = [np.zeros((0, k), np.float32)], [np.zeros((0, k), np.int64)]
+    for off in range(0, len(queries), bucket):
+        part = queries[off : off + bucket]
+        scores = dense_scores(stage_rows(rows, part, next(b for b in sizes if b >= len(part))))
+        v, i = topk_lower_index(scores[: len(part), :num_passages], k)
+        vals.append(v.cpu().numpy())
+        idx.append(i.cpu().numpy())
+    return np.concatenate(vals), np.concatenate(idx)
+
+
+class DeviceBackend:
+    """The retrieval back end on one device: the ``RetrievalIndex`` and the
+    resident fact and passage matrices (in bfloat16 under
+    ``compute_dtype="bfloat16"``). ``parallel/backend.ShardedBackend`` is
+    the same interface on a mesh; ``HippoRAG`` drives either:
+
+    - ``dp``: batches are padded to a multiple of it;
+    - ``fact_candidates(qf)``: the top ``linking_top_k`` normalized fact
+      scores and rows of staged question rows, on the host;
+    - ``passage_scores(qp)``: started before the filter, handed to
+      ``doc_scores``;
+    - ``doc_scores(passage, sel_scores, top_idx, top_mask, search)``: [b, P]
+      document scores on the device, -inf past the real passages;
+    - ``dense_scores(qp)``: min-max-normalized dense scores of staged rows.
+
+    It is defined here, not beside ``graph_search_batch``, because the
+    benchmark's fault checks and the precision tests patch this module's
+    ``fact_topk``.
+    """
+
+    dp = 1
+
+    def __init__(self, cfg, device, graph, fact_embeddings, passage_embeddings,
+                 fact_subj, fact_obj, node_chunk_counts, passage_node_ids,
+                 num_facts: int, num_passages: int):
+        self.cfg = cfg
+        self.device = device
+        self.index = RetrievalIndex(
+            graph=graph.to(device),
+            fact_subj_node=torch.from_numpy(fact_subj).to(device),
+            fact_obj_node=torch.from_numpy(fact_obj).to(device),
+            node_chunk_counts=torch.from_numpy(node_chunk_counts).to(device),
+            passage_node_ids=torch.from_numpy(passage_node_ids).to(device),
+            num_facts=num_facts,
+            num_passages=num_passages,
+        )
+        emb_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+        self.fact_emb = torch.from_numpy(fact_embeddings).to(device, emb_dtype)
+        self.passage_emb = torch.from_numpy(passage_embeddings).to(device, emb_dtype)
+
+    def _to_device(self, rows: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(rows).to(self.device)
+
+    def fact_candidates(self, qf: np.ndarray):
+        cfg, n = self.cfg, self.index.num_facts
+        vals, idx = fact_topk(
+            self._to_device(qf), self.fact_emb, n, min(cfg.linking_top_k, max(n, 1)), cfg.compute_dtype,
+            use_pallas=None if cfg.use_pallas_kernels else False,
+        )
+        return vals.cpu().numpy(), idx.cpu().numpy()
+
+    def passage_scores(self, qp: np.ndarray) -> torch.Tensor:
+        """Raw [b, P_pad] DPR scores: they do not wait for the kept facts,
+        so the device computes them while the host filters."""
+        return batched_scores(self._to_device(qp), self.passage_emb, self.cfg.compute_dtype)
+
+    def dense_scores(self, qp: np.ndarray) -> torch.Tensor:
+        return batched_normalized_scores(
+            self._to_device(qp), self.passage_emb, self.index.num_passages, self.cfg.compute_dtype
+        )
+
+    def doc_scores(self, dpr_scores, sel_scores, top_idx, top_mask, search: bool) -> torch.Tensor:
+        """Graph search (``retrieve/seeds``, ``retrieve/ppr``) when
+        ``search``, else the normalized DPR scores."""
+        cfg = self.cfg
+        if search:
+            return graph_search_batch(
+                self.index,
+                self._to_device(sel_scores),
+                self._to_device(top_idx),
+                self._to_device(top_mask),
+                dpr_scores,
+                link_top_k=cfg.linking_top_k,
+                passage_node_weight=cfg.passage_node_weight,
+                damping=cfg.damping,
+                ppr_max_iters=cfg.ppr_max_iters,
+                ppr_tol=cfg.ppr_tol,
+                ppr_dtype=cfg.ppr_compute_dtype,
+                ppr_edge_chunks=cfg.ppr_edge_chunks,
+            )
+        valid = (torch.arange(dpr_scores.shape[1], device=self.device) < self.index.num_passages)[None, :]
+        return torch.where(valid, min_max_normalize(dpr_scores, where=valid), -torch.inf)
 
 
 class HippoRAG:
@@ -224,9 +389,7 @@ class HippoRAG:
             "triple": {},
             "passage": {},
         }
-        self._index_state: Optional[RetrievalIndex] = None
-        self._mesh = None  # set by _setup_sharded_backend when mesh_shape > 1
-        self._sharded_factories = None
+        self._backend = None  # a DeviceBackend or ShardedBackend, built at prepare time
         self._capacities: Dict[str, Optional[int]] = {
             "node": None,
             "edge": None,
@@ -551,17 +714,14 @@ class HippoRAG:
     def prepare_retrieval_objects(self):
         logger.info("Preparing retrieval objects")
         cfg = self.global_config
-        self._mesh = None
 
         self.entity_node_keys = list(self.entity_embedding_store.get_all_ids())
         self.passage_node_keys = list(self.chunk_embedding_store.get_all_ids())
         self.fact_node_keys = list(self.fact_embedding_store.get_all_ids())
         # passage-aligned tables for result building (index and delete reset
         # ready_to_retrieve, so they are rebuilt with passage_node_keys)
-        rows = self.chunk_embedding_store.get_rows(self.passage_node_keys)
-        self._passage_contents = np.array([rows[k]["content"] for k in self.passage_node_keys], dtype=object)
-        self._passage_metadata = np.array(
-            [self.chunk_metadata.get(k, {}) for k in self.passage_node_keys], dtype=object
+        self._passage_contents, self._passage_metadata = passage_tables(
+            self.chunk_embedding_store, self.passage_node_keys, self.chunk_metadata
         )
 
         # self-heal: make sure every store node exists in the graph
@@ -669,86 +829,23 @@ class HippoRAG:
         for i, pid in enumerate(self.passage_node_keys):
             passage_node_ids[i] = self.graph.node_to_idx[pid]
 
-        # multi-device backend: corpus-sharded embeddings + sharded PPR; the
-        # single-device copies below are not built (at mesh scale they
-        # would not fit one device)
+        # the back end: one device, or corpus-sharded over a mesh (where the
+        # single-device copies are not built: at mesh scale they would not
+        # fit one device)
+        arrays = (fact_subj, fact_obj, node_chunk_counts, passage_node_ids,
+                  len(self.fact_node_keys), len(self.passage_node_keys))
         if int(np.prod(cfg.mesh_shape)) > 1:
-            self._setup_sharded_backend(coo_np, fact_subj, fact_obj,
-                                        node_chunk_counts, passage_node_ids)
-            self._index_state = self._fact_emb_dev = self._passage_emb_dev = None
-            self.ready_to_retrieve = True
-            return
+            from .parallel.backend import ShardedBackend
 
-        dev = self.device
-        self._index_state = RetrievalIndex(
-            graph=graph_dev.to(dev),
-            fact_subj_node=torch.from_numpy(fact_subj).to(dev),
-            fact_obj_node=torch.from_numpy(fact_obj).to(dev),
-            node_chunk_counts=torch.from_numpy(node_chunk_counts).to(dev),
-            passage_node_ids=torch.from_numpy(passage_node_ids).to(dev),
-            num_facts=len(self.fact_node_keys),
-            num_passages=len(self.passage_node_keys),
-        )
-        # compute_dtype="bfloat16" keeps the corpus matrices resident in bf16
-        emb_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-        self._fact_emb_dev = torch.from_numpy(self.fact_embeddings).to(dev, emb_dtype)
-        self._passage_emb_dev = torch.from_numpy(self.passage_embeddings).to(dev, emb_dtype)
-        self.ready_to_retrieve = True
-
-    def _setup_sharded_backend(self, coo_np, fact_subj, fact_obj,
-                               node_chunk_counts, passage_node_ids):
-        """Corpus-shard the embedding matrices and the graph over the mesh:
-        scoring merges per-shard top-ks, PPR runs the sharded halo-exchange
-        ELL solver, the seeds are built on the mesh's first device. The
-        factories are cached per mesh and configuration, so a re-index or a
-        delete only re-shards the data."""
-        from .parallel import (
-            corpus_sharded,
-            make_mesh,
-            make_sharded_norm_scores,
-            make_sharded_ppr_ell,
-            make_sharded_score_topk,
-            put_sharded_ell,
-            shard_graph_ell,
-        )
-        from .parallel.mesh import mesh_devices_for
-
-        cfg = self.global_config
-        n_mesh = int(np.prod(cfg.mesh_shape))
-        devices = mesh_devices_for(n_mesh, self.device, self.mesh_devices)
-        key = (tuple(cfg.mesh_shape), tuple(str(d) for d in devices), cfg.linking_top_k, cfg.compute_dtype,
-               cfg.ppr_max_iters, cfg.damping, cfg.ppr_tol)
-        if self._sharded_factories is None or self._sharded_factories[0] != key:
-            mesh = make_mesh(cfg.mesh_shape, devices=devices)
-            self._sharded_factories = (
-                key,
-                mesh,
-                make_sharded_score_topk(mesh, k=cfg.linking_top_k, compute_dtype=cfg.compute_dtype),
-                make_sharded_norm_scores(mesh, compute_dtype=cfg.compute_dtype),
-                make_sharded_ppr_ell(mesh, max_iters=cfg.ppr_max_iters, damping=cfg.damping, tol=cfg.ppr_tol),
+            self._backend = ShardedBackend(
+                cfg, self.device, self.mesh_devices, coo_np, self.fact_embeddings, self.passage_embeddings,
+                *arrays, self.graph.num_nodes, previous=self._backend,
             )
-        (_key, self._mesh, self._sharded_score, self._sharded_norm_scores,
-         self._sharded_ppr) = self._sharded_factories
-        corpus = cfg.mesh_shape[1]
-
-        def shard_rows(mat):
-            rows = ((mat.shape[0] + corpus - 1) // corpus) * corpus
-            if rows != mat.shape[0]:
-                mat = np.pad(mat, ((0, rows - mat.shape[0]), (0, 0)))
-            return corpus_sharded(self._mesh).place(mat)
-
-        self._fact_emb_sharded = shard_rows(self.fact_embeddings)
-        self._passage_emb_sharded = shard_rows(self.passage_embeddings)
-        self._sharded_graph = shard_graph_ell(coo_np, num_shards=corpus)
-        self._sharded_graph_dev = put_sharded_ell(self._mesh, self._sharded_graph)
-        home = self._mesh.devices[0, 0]
-        self._sharded_seed_arrays = tuple(
-            torch.from_numpy(a).to(home) for a in (fact_subj, fact_obj, node_chunk_counts, passage_node_ids)
-        )
-        logger.info(
-            "Sharded retrieval backend: mesh %sx%s over %d devices",
-            cfg.mesh_shape[0], corpus, self._mesh.size,
-        )
+        else:
+            self._backend = DeviceBackend(
+                cfg, self.device, graph_dev, self.fact_embeddings, self.passage_embeddings, *arrays
+            )
+        self.ready_to_retrieve = True
 
     # ==================================================================
     # Query encoding
@@ -795,18 +892,9 @@ class HippoRAG:
                 self.get_query_embeddings(queries)
             with full_f32():
                 results = self._retrieve_batches(
-                    queries, num_to_retrieve, len(self.fact_node_keys),
-                    len(self.passage_node_keys), cfg.linking_top_k, call,
+                    queries, num_to_retrieve, len(self.fact_node_keys), cfg.linking_top_k, call
                 )
-
-        if gold_docs is not None:
-            evaluator = RetrievalRecall(self.global_config)
-            overall, _ = evaluator.calculate_metric_scores(
-                gold_docs, [r.docs for r in results], RETRIEVAL_K_LIST
-            )
-            logger.info("Retrieval eval: %s", overall)
-            return results, overall
-        return results
+        return with_recall(cfg, results, gold_docs, "Retrieval eval")
 
     def _rerank_candidates(
         self, batch_queries, cand_idx, cand_vals, link_top_k, b_pad, num_facts
@@ -879,19 +967,17 @@ class HippoRAG:
         return results
 
     def _retrieve_batches(
-        self, queries, num_to_retrieve, num_facts, num_passages, link_top_k, call=None
+        self, queries, num_to_retrieve, num_facts, link_top_k, call=None
     ) -> List[QuerySolution]:
         """Buckets of ``queries`` through fact scoring, the filter, graph
-        search and result building. ``call`` is the call's open ``retrieve``
-        span, the parent of the stage spans, which may run on worker threads."""
-        if self._mesh is not None:
-            return self._retrieve_batches_sharded(
-                queries, num_to_retrieve, num_facts, num_passages, link_top_k, call
-            )
-        cfg = self.global_config
-        dev = self.device
-        bucket = max(1, cfg.ppr_batch_size)
-        sizes = sub_buckets(bucket)
+        search, the document top-k and result building, on the back end
+        that ``prepare_retrieval_objects`` chose. ``call`` is the call's
+        open ``retrieve`` span, the parent of the stage spans, which may run
+        on worker threads."""
+        backend = self._backend
+        sizes = sub_buckets(self.global_config.ppr_batch_size, backend.dp)
+        bucket = sizes[-1]
+        search = num_facts > 0 and self.graph.num_edges > 0
         slices = list(enumerate(queries[s : s + bucket] for s in range(0, len(queries), bucket)))
 
         def prep(bucket_slice):
@@ -900,29 +986,11 @@ class HippoRAG:
             b_pad = next(b for b in sizes if b >= b_real)
 
             with span("retrieve/fact_topk", parent=call, bucket=bucket_no, b_real=b_real, b_pad=b_pad):
-                qf = np.zeros((b_pad, self.fact_embeddings.shape[1]), dtype=np.float32)
-                qp = np.zeros_like(qf)
-                for i, q in enumerate(batch_queries):
-                    qf[i] = self.query_to_embedding["triple"][q]
-                    qp[i] = self.query_to_embedding["passage"][q]
-
-                # DPR passage scores first: no dependency on the kept facts, so
-                # the device computes them while the host reranks
-                dpr_scores = batched_scores(
-                    torch.from_numpy(qp).to(dev), self._passage_emb_dev, cfg.compute_dtype
-                )
+                qf = stage_rows(self.query_to_embedding["triple"], batch_queries, b_pad)
+                qp = stage_rows(self.query_to_embedding["passage"], batch_queries, b_pad)
+                passage = backend.passage_scores(qp)
                 if num_facts > 0:
-                    k_cand = min(link_top_k, max(num_facts, 1))
-                    cand_vals_dev, cand_idx_dev = fact_topk(
-                        torch.from_numpy(qf).to(dev),
-                        self._fact_emb_dev,
-                        num_facts,
-                        k_cand,
-                        cfg.compute_dtype,
-                        use_pallas=None if cfg.use_pallas_kernels else False,
-                    )
-                    cand_vals = cand_vals_dev.cpu().numpy()
-                    cand_idx = cand_idx_dev.cpu().numpy()
+                    cand_vals, cand_idx = backend.fact_candidates(qf)
                 else:
                     cand_idx = np.zeros((b_pad, 0), dtype=np.int32)
                     cand_vals = np.zeros((b_pad, 0), dtype=np.float32)
@@ -931,34 +999,15 @@ class HippoRAG:
                 top_idx, top_mask, sel_scores, batch_top_facts = self._rerank_candidates(
                     batch_queries, cand_idx, cand_vals, link_top_k, b_pad, num_facts
                 )
-            return (bucket_no, batch_queries, b_real, dpr_scores, top_idx, top_mask,
+            return (bucket_no, batch_queries, b_real, passage, top_idx, top_mask,
                     sel_scores, batch_top_facts)
 
-        def finish(bucket_no, batch_queries, b_real, dpr_scores, top_idx, top_mask,
+        def finish(bucket_no, batch_queries, b_real, passage, top_idx, top_mask,
                    sel_scores, batch_top_facts):
             # a named range in profiler traces: seeds, PPR, document top-k
             # and the copy of the ranking to the host
             with span("retrieve/graph_search", parent=call, bucket=bucket_no):
-                if num_facts > 0 and self.graph.num_edges > 0:
-                    doc_scores = graph_search_batch(
-                        self._index_state,
-                        torch.from_numpy(sel_scores).to(dev),
-                        torch.from_numpy(top_idx).to(dev),
-                        torch.from_numpy(top_mask).to(dev),
-                        dpr_scores,
-                        link_top_k=link_top_k,
-                        passage_node_weight=cfg.passage_node_weight,
-                        damping=cfg.damping,
-                        ppr_max_iters=cfg.ppr_max_iters,
-                        ppr_tol=cfg.ppr_tol,
-                        ppr_dtype=cfg.ppr_compute_dtype,
-                        ppr_edge_chunks=cfg.ppr_edge_chunks,
-                    )
-                else:
-                    valid = (torch.arange(dpr_scores.shape[1], device=dev) < num_passages)[None, :]
-                    doc_scores = torch.where(
-                        valid, min_max_normalize(dpr_scores, where=valid), -torch.inf
-                    )
+                doc_scores = backend.doc_scores(passage, sel_scores, top_idx, top_mask, search)
                 with span("retrieve/doc_topk"):
                     order_dev, sorted_dev = rank_documents_topk(doc_scores, num_to_retrieve)
                     order = order_dev.cpu().numpy()
@@ -969,151 +1018,22 @@ class HippoRAG:
 
         return self._run_bucket_pipeline(slices, prep, finish)
 
-    def _retrieve_batches_sharded(
-        self, queries, num_to_retrieve, num_facts, num_passages, link_top_k, call=None
-    ) -> List[QuerySolution]:
-        """Multi-device retrieval: corpus-sharded scoring with distributed
-        top-k, host rerank, seeds on the mesh's first device, sharded
-        scatter-free PPR; the ranking is the JAX package's sharded one (PPR
-        scores of the real passages, DPR for queries with no fact, a stable
-        descending sort). The stage spans are the single-device path's."""
-        cfg = self.global_config
-        dp = cfg.mesh_shape[0]
-        corpus = cfg.mesh_shape[1]
-        home = self._mesh.devices[0, 0]
-        bucket = max(dp, cfg.ppr_batch_size)
-        bucket = -(-bucket // dp) * dp
-        sizes = [-(-b // dp) * dp for b in (8, 32, 128, 512) if b < bucket] + [bucket]
-        fact_subj, fact_obj, chunk_counts, passage_node_ids = self._sharded_seed_arrays
-        real_pids = passage_node_ids[:num_passages].long()
-        n_total = corpus * self._sharded_graph.shard_nodes
-        n_nodes = self.graph.num_nodes
-        slices = list(enumerate(queries[s : s + bucket] for s in range(0, len(queries), bucket)))
-
-        def prep(bucket_slice):
-            bucket_no, batch_queries = bucket_slice
-            b_real = len(batch_queries)
-            b_pad = next(b for b in sizes if b >= b_real)
-
-            with span("retrieve/fact_topk", parent=call, bucket=bucket_no, b_real=b_real, b_pad=b_pad):
-                qf = np.zeros((b_pad, self.fact_embeddings.shape[1]), dtype=np.float32)
-                qp = np.zeros_like(qf)
-                for i, q in enumerate(batch_queries):
-                    qf[i] = self.query_to_embedding["triple"][q]
-                    qp[i] = self.query_to_embedding["passage"][q]
-
-                if num_facts > 0:
-                    _, vals, idx = self._sharded_score(
-                        torch.from_numpy(qf).to(home), self._fact_emb_sharded, num_facts
-                    )
-                    cand_vals, cand_idx = vals.cpu().numpy(), idx.cpu().numpy()
-                else:
-                    cand_idx = np.zeros((b_pad, 0), dtype=np.int32)
-                    cand_vals = np.zeros((b_pad, 0), dtype=np.float32)
-
-            with span("retrieve/filter", parent=call, bucket=bucket_no):
-                top_idx, top_mask, sel_scores, batch_top_facts = self._rerank_candidates(
-                    batch_queries, cand_idx, cand_vals, link_top_k, b_pad, num_facts
-                )
-            return (bucket_no, batch_queries, b_real, qp, top_idx, top_mask, sel_scores,
-                    batch_top_facts)
-
-        def finish(bucket_no, batch_queries, b_real, qp, top_idx, top_mask, sel_scores,
-                   batch_top_facts):
-            with span("retrieve/graph_search", parent=call, bucket=bucket_no):
-                with span("retrieve/seeds"):
-                    norm_p = self._sharded_norm_scores(
-                        torch.from_numpy(qp).to(home), self._passage_emb_sharded, num_passages
-                    )
-                    dpr_norm_dev = norm_p[:, :num_passages]
-                    dpr_norm = dpr_norm_dev.cpu().numpy()
-                    has_facts = top_mask.sum(axis=1) > 0
-                    search = num_facts > 0 and self.graph.num_edges > 0
-                    if search:
-                        reset = build_reset_batch(
-                            torch.from_numpy(sel_scores).to(home), torch.from_numpy(top_idx).to(home),
-                            torch.from_numpy(top_mask).to(home), dpr_norm_dev,
-                            fact_subj, fact_obj, chunk_counts, real_pids, n_nodes,
-                            n_total=n_total, link_top_k=link_top_k,
-                            passage_node_weight=cfg.passage_node_weight,
-                        )
-                if search:
-                    with span("retrieve/ppr"):
-                        ranks = self._sharded_ppr(self._sharded_graph_dev, reset)
-                with span("retrieve/doc_topk"):
-                    if search:
-                        # passage columns only: [B, P] to the host, not [B, N_total]
-                        ranks = ranks[:, real_pids].cpu().numpy()
-                        doc_scores = np.where(has_facts[:, None], ranks, dpr_norm)
-                    else:
-                        doc_scores = dpr_norm
-                    order = np.argsort(-doc_scores, axis=1, kind="stable")
-
-            with span("retrieve/build_result", parent=call, bucket=bucket_no, results=b_real):
-                top_n = order[:, :num_to_retrieve]
-                return self._build_results(
-                    batch_queries, top_n, np.take_along_axis(doc_scores, top_n, axis=1), batch_top_facts
-                )
-
-        return self._run_bucket_pipeline(slices, prep, finish)
-
     def _build_results(self, queries, order, scores, graph_seeds) -> List[QuerySolution]:
-        """One ``QuerySolution`` per question of a bucket from its ranking:
-        ``order`` and ``scores`` are ``[b, k]`` (``b`` at least
-        ``len(queries)``, padding rows ignored), best first. A question keeps
-        the passages whose index is a real passage and whose score is above
-        -inf, and the first that many scores of its row; each result owns
-        its arrays, lists and metadata dicts. Counts the passages placed as
-        ``docs`` on the open span."""
-        b = len(queries)
-        order, scores = np.asarray(order)[:b], np.asarray(scores)[:b]
-        valid = (order < len(self._passage_contents)) & (scores > -np.inf)
-        scores = scores.astype(np.float64)
-        out = []
-        for i, query in enumerate(queries):
-            idx = order[i][valid[i]]
-            out.append(QuerySolution(
-                question=query,
-                docs=self._passage_contents[idx].tolist(),
-                doc_scores=scores[i, : len(idx)].copy(),
-                doc_metadata=list(map(dict, self._passage_metadata[idx])),
-                graph_seeds=list(graph_seeds[i]),
-            ))
-        count("docs", int(valid.sum()))
-        return out
+        """:func:`build_results` over this index's passage-aligned tables."""
+        return build_results(self._passage_contents, self._passage_metadata, queries, order, scores, graph_seeds)
 
     # ==================================================================
     # Dense passage retrieval (no graph search)
     # ==================================================================
-    def _dpr_normalized_scores(self, qp: np.ndarray, num_passages: int) -> torch.Tensor:
-        """Min-max-normalized [B, P_cap] query x passage scores on the device
-        (columns past ``num_passages`` are padding and score 0).
-
-        In mesh mode the single-device passage matrix is never built, so
-        the scores come from the corpus-sharded matrix, the batch padded to
-        a multiple of the dp axis."""
-        with full_f32():
-            if self._mesh is not None:
-                dp = self.global_config.mesh_shape[0]
-                b = qp.shape[0]
-                qp = np.pad(qp, ((0, -b % dp), (0, 0)))
-                home = self._mesh.devices[0, 0]
-                return self._sharded_norm_scores(
-                    torch.from_numpy(qp).to(home), self._passage_emb_sharded, num_passages
-                )[:b]
-            return batched_normalized_scores(
-                torch.from_numpy(qp).to(self.device), self._passage_emb_dev, num_passages,
-                self.global_config.compute_dtype,
-            )
-
     def dense_passage_retrieval(self, query: str):
         """Pure DPR for one query: (order over all passages, their scores)."""
         if not self.ready_to_retrieve:
             self.prepare_retrieval_objects()
         self.get_query_embeddings([query])
         num_passages = len(self.passage_node_keys)
-        qp = self.query_to_embedding["passage"][query][None]
-        scores = self._dpr_normalized_scores(qp, num_passages)[0, :num_passages]
+        qp = stage_rows(self.query_to_embedding["passage"], [query], self._backend.dp)
+        with full_f32():
+            scores = self._backend.dense_scores(qp)[0, :num_passages]
         vals, order = topk_lower_index(scores, num_passages)
         return order.cpu().numpy(), vals.cpu().numpy()
 
@@ -1136,28 +1056,13 @@ class HippoRAG:
             with span("retrieve/embed"):
                 self.get_query_embeddings(queries)
             num_passages = len(self.passage_node_keys)
-            k = min(num_to_retrieve, num_passages)
-            bucket = max(1, cfg.ppr_batch_size)
-            sizes = sub_buckets(bucket)
-            results = []
-            for off in range(0, len(queries), bucket):
-                part = queries[off : off + bucket]
-                qp = np.zeros((next(b for b in sizes if b >= len(part)), self.passage_embeddings.shape[1]),
-                              dtype=np.float32)
-                for i, q in enumerate(part):
-                    qp[i] = self.query_to_embedding["passage"][q]
-                scores = self._dpr_normalized_scores(qp, num_passages)[: len(part), :num_passages]
-                vals, order = (t.cpu().numpy() for t in topk_lower_index(scores, k))
-                results += self._build_results(part, order, vals, [()] * len(part))
-
-        if gold_docs is not None:
-            evaluator = RetrievalRecall(self.global_config)
-            overall, _ = evaluator.calculate_metric_scores(
-                gold_docs, [r.docs for r in results], RETRIEVAL_K_LIST
-            )
-            logger.info("DPR retrieval eval: %s", overall)
-            return results, overall
-        return results
+            with full_f32():
+                vals, order = dense_topk(
+                    queries, self.query_to_embedding["passage"], self._backend.dense_scores, num_passages,
+                    min(num_to_retrieve, num_passages), sub_buckets(cfg.ppr_batch_size, self._backend.dp),
+                )
+            results = self._build_results(queries, order, vals, [()] * len(queries))
+        return with_recall(cfg, results, gold_docs, "DPR retrieval eval")
 
     # ==================================================================
     # QA
@@ -1313,13 +1218,7 @@ class HippoRAG:
                 )
             )
 
-        if gold_docs is None:
-            return results
-        evaluator = RetrievalRecall(self.global_config)
-        overall, _ = evaluator.calculate_metric_scores(
-            gold_docs, [r.docs for r in results], RETRIEVAL_K_LIST
-        )
-        return results, overall
+        return with_recall(cfg, results, gold_docs)
 
     def answer_with_ircot(
         self,

@@ -9,7 +9,6 @@ bf16 query rounding where the reference would not have taken its kernel.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 # padded query-batch sizes below a bucket, as in the JAX package: a bounded
@@ -95,42 +94,18 @@ def score_and_topk(
     return scores, values, indices
 
 
-def sub_buckets(bucket: int) -> list:
-    """Padded batch sizes for slices of up to ``bucket`` queries."""
-    return [b for b in _SUB_BUCKETS if b < bucket] + [bucket]
-
-
-def dense_topk(query_rows, passages: torch.Tensor, num_passages: int, k: int, bucket: int,
-               compute_dtype: str = "float32"):
-    """Dense retrieval of ``query_rows`` (a sequence of [D] host vectors)
-    over the first ``num_passages`` rows of ``passages``: per slice of
-    ``bucket`` queries, padded to a :func:`sub_buckets` size, min-max
-    normalized scores and their top ``k`` (ties to the lower index).
-    Returns host arrays (values [n, k], indices [n, k])."""
+def sub_buckets(bucket: int, multiple: int = 1) -> list:
+    """Padded batch sizes for slices of up to ``bucket`` queries, the last
+    being the slice size; each is rounded up to a multiple of ``multiple``
+    (a mesh's dp axis, which splits every batch evenly)."""
     bucket = max(1, bucket)
-    sizes = sub_buckets(bucket)
-    vals, idx = [np.zeros((0, k), np.float32)], [np.zeros((0, k), np.int64)]
-    for off in range(0, len(query_rows), bucket):
-        part = query_rows[off : off + bucket]
-        q = np.zeros((next(b for b in sizes if b >= len(part)), passages.shape[1]), np.float32)
-        q[: len(part)] = part
-        scores = batched_normalized_scores(
-            torch.from_numpy(q).to(passages.device), passages, num_passages, compute_dtype
-        )[: len(part), :num_passages]
-        v, i = topk_lower_index(scores, k)
-        vals.append(v.cpu().numpy())
-        idx.append(i.cpu().numpy())
-    return np.concatenate(vals), np.concatenate(idx)
+    sizes = [b for b in _SUB_BUCKETS if b < bucket] + [bucket]
+    return [-(-b // multiple) * multiple for b in sizes]
 
 
-def fused_topk_route(b: int, n: int, device) -> bool:
+def fused_topk_route(device) -> bool:
     """Routing decision for :func:`fact_topk`: True -> the fused CUDA kernel.
-
-    Every CUDA call takes the kernel; the CPU takes the plain matmul + top-k.
-    ``b`` and ``n`` are the [B, N] score shape, kept in the signature so a
-    size threshold measured on the GPU can be added without touching callers.
-    """
-    del b, n
+    Every CUDA call takes the kernel; the CPU takes the plain matmul + top-k."""
     return torch.device(device).type == "cuda"
 
 
@@ -157,33 +132,28 @@ def fact_topk(
     k: int,
     compute_dtype: str = "float32",
     use_pallas: bool | None = None,
-    use_fused: bool | None = None,
 ):
     """Top-k normalized fact scores: (norm_vals [B, k], idx [B, k]).
 
-    ``use_pallas`` (the JAX package's name) and its alias ``use_fused``
-    choose the path: ``None`` routes by :func:`fused_topk_route`, ``True``
-    takes the fused kernel and ``False`` pins the plain path. Padded/absent
-    keys yield norm value 0.
+    ``use_pallas`` (the JAX package's name) chooses the path: ``None``
+    routes by :func:`fused_topk_route`, ``True`` takes the fused kernel and
+    ``False`` pins the plain path. Padded/absent keys yield norm value 0.
 
     The plain path rounds the queries to bfloat16 along with the keys under
     ``compute_dtype="bfloat16"`` (:func:`batched_scores`), as the reference's
     XLA path does. The fused path takes float32 queries against the keys
     as they are resident (float32, or bfloat16 under bf16 compute), as the
     reference's Pallas kernel does, with one exception that keeps the
-    reference's numbers: on the default route (``use_pallas`` and
-    ``use_fused`` both ``None``), where the reference would have taken its
-    XLA path (:func:`rounds_bf16_queries`), bf16 compute rounds the queries
-    (and any float32 keys) to bfloat16 before the kernel. The kernel then
+    reference's numbers: on the default route (``use_pallas=None``), where
+    the reference would have taken its XLA path (:func:`rounds_bf16_queries`),
+    bf16 compute rounds the queries (and any float32 keys) to bfloat16
+    before the kernel. The kernel then
     forms the exact bf16 x bf16 products that XLA path does.
     """
-    if use_pallas is not None and use_fused is not None and use_pallas != use_fused:
-        raise ValueError("use_pallas and its alias use_fused disagree")
-    use_fused = use_pallas if use_pallas is not None else use_fused
-    routed = use_fused is None
+    routed = use_pallas is None
     if routed:
-        use_fused = fused_topk_route(queries.shape[0], keys.shape[0], queries.device)
-    if use_fused:
+        use_pallas = fused_topk_route(queries.device)
+    if use_pallas:
         from .fused_topk import fused_score_topk
 
         if routed and rounds_bf16_queries(queries.shape[0], keys.shape[0], compute_dtype):

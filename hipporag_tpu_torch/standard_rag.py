@@ -15,8 +15,9 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from . import hipporag
 from .config import BaseConfig
-from .evaluation import RetrievalRecall
+from .hipporag import build_results, dense_topk, passage_tables, with_recall
 from .llm import get_llm
 from .preprocessing import get_preprocessor
 from .prompts import PromptTemplateManager, get_query_instruction
@@ -28,11 +29,11 @@ from .utils.qa_utils import finish_rag_qa
 from .utils.timing import StageTimers, span
 
 from .embedding import get_embedding_model
-from .ops.scoring import dense_topk
+from .ops.scoring import batched_normalized_scores, sub_buckets
 
 logger = get_logger(__name__)
 
-RETRIEVAL_K_LIST = [1, 2, 5, 10, 20, 30, 50, 100, 150, 200]
+RETRIEVAL_K_LIST = hipporag.RETRIEVAL_K_LIST  # the recall cut-offs of with_recall
 
 
 class StandardRAG:
@@ -118,10 +119,37 @@ class StandardRAG:
     # ------------------------------------------------------------------
     def prepare_retrieval_objects(self):
         self.passage_node_keys = list(self.chunk_embedding_store.get_all_ids())
+        self._passage_contents, self._passage_metadata = passage_tables(
+            self.chunk_embedding_store, self.passage_node_keys, self.chunk_metadata
+        )
         mat = self.chunk_embedding_store.get_embeddings_matrix(self.passage_node_keys)
         self.passage_embeddings = mat
         self._passage_emb_dev = torch.from_numpy(np.ascontiguousarray(mat, np.float32)).to(self.device)
         self.ready_to_retrieve = True
+
+    def _dense_scores(self, qp: np.ndarray) -> torch.Tensor:
+        return batched_normalized_scores(
+            torch.from_numpy(qp).to(self.device), self._passage_emb_dev, len(self.passage_node_keys),
+            self.global_config.compute_dtype,
+        )
+
+    def _dense_topk(self, queries: List[str], k: int):
+        """Encodes the questions it has no vector for, then ranks every
+        question's top ``k`` passages: host (values [n, k], indices [n, k])."""
+        todo = [q for q in queries if q not in self.query_to_embedding]
+        if todo:
+            embs = self.embedding_model.batch_encode(
+                todo, instruction=get_query_instruction("query_to_passage"), norm=True
+            )
+            if embs.ndim == 1:
+                embs = embs[None]
+            for q, e in zip(todo, embs):
+                self.query_to_embedding[q] = e
+        with full_f32():
+            return dense_topk(
+                queries, self.query_to_embedding, self._dense_scores, len(self.passage_node_keys), k,
+                sub_buckets(self.global_config.ppr_batch_size),
+            )
 
     def retrieve(
         self,
@@ -137,59 +165,23 @@ class StandardRAG:
         if not self.passage_node_keys:
             # empty index: empty but usable results, as HippoRAG gives
             results = [QuerySolution(question=q, docs=[], doc_scores=np.zeros(0)) for q in queries]
-            if gold_docs is not None:
-                overall, _ = RetrievalRecall(cfg).calculate_metric_scores(
-                    gold_docs, [[] for _ in results], RETRIEVAL_K_LIST
-                )
-                return results, overall
-            return results
+            return with_recall(cfg, results, gold_docs)
 
         with span("retrieve", questions=len(queries)):
-            todo = [q for q in queries if q not in self.query_to_embedding]
-            if todo:
-                embs = self.embedding_model.batch_encode(
-                    todo, instruction=get_query_instruction("query_to_passage"), norm=True
-                )
-                if embs.ndim == 1:
-                    embs = embs[None]
-                for q, e in zip(todo, embs):
-                    self.query_to_embedding[q] = e
-
-            n_passages = len(self.passage_node_keys)
-            with full_f32():
-                vals, order = dense_topk(
-                    [self.query_to_embedding[q] for q in queries], self._passage_emb_dev, n_passages,
-                    min(num_to_retrieve, n_passages), cfg.ppr_batch_size, cfg.compute_dtype,
-                )
-            results = []
-            for i, q in enumerate(queries):
-                keys = [self.passage_node_keys[j] for j in order[i]]
-                results.append(
-                    QuerySolution(
-                        question=q,
-                        docs=[self.chunk_embedding_store.get_row(key)["content"] for key in keys],
-                        doc_scores=vals[i].astype(np.float64),
-                        doc_metadata=[dict(self.chunk_metadata.get(key, {})) for key in keys],
-                    )
-                )
-
-        if gold_docs is not None:
-            evaluator = RetrievalRecall(cfg)
-            overall, _ = evaluator.calculate_metric_scores(
-                gold_docs, [r.docs for r in results], RETRIEVAL_K_LIST
-            )
-            return results, overall
-        return results
+            vals, order = self._dense_topk(queries, min(num_to_retrieve, len(self.passage_node_keys)))
+            results = build_results(self._passage_contents, self._passage_metadata, queries, order, vals)
+        return with_recall(cfg, results, gold_docs)
 
     def dense_passage_retrieval(self, query: str):
         """Full ranking over all passages: (order, scores), the contract of
         ``HippoRAG.dense_passage_retrieval``."""
-        result = self.retrieve([query], num_to_retrieve=len(self.passage_node_keys))[0]
-        keys = {k: i for i, k in enumerate(self.passage_node_keys)}
-        order = np.asarray(
-            [keys[self.chunk_embedding_store.text_to_hash_id[d]] for d in result.docs]
-        )
-        return order, np.asarray(result.doc_scores)
+        if not self.ready_to_retrieve:
+            self.prepare_retrieval_objects()
+        if not self.passage_node_keys:
+            return np.zeros(0, np.int64), np.zeros(0)
+        with span("retrieve", questions=1):
+            vals, order = self._dense_topk([query], len(self.passage_node_keys))
+        return order[0], vals[0].astype(np.float64)
 
     # ------------------------------------------------------------------
     def qa(self, queries: List[QuerySolution]):

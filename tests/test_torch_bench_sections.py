@@ -155,7 +155,7 @@ def test_chip_smoke_phase9_on_cpu(monkeypatch, tmp_path, capsys):
         fused_topk.SCAN_LAUNCHES.add()
         return fused_topk.scan_tiles_reference(queries, keys, valid_n)
 
-    monkeypatch.setattr(scoring, "fused_topk_route", lambda b, n, device: True)
+    monkeypatch.setattr(scoring, "fused_topk_route", lambda device: True)
     monkeypatch.setattr(fused_topk, "scan_tiles", counted)
     monkeypatch.setenv("BENCH_2WIKI_CORPUS", str(tmp_path / "absent.json"))
     out = chip_smoke.phase9_sections("cpu")

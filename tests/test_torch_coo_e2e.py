@@ -68,7 +68,7 @@ def test_port_coo_matches_the_jax_fixture(tmp_path, dtype):
         want = json.load(fh)["records"][dtype]
     rag = hipporag_tpu_torch.HippoRAG(_config(hipporag_tpu_torch, tmp_path, dtype), device="cpu")
     got = chip_smoke.coo_record(rag, load_dataset("sample", DATA))
-    assert type(rag._index_state.graph).__name__ == "COOGraph"
+    assert type(rag._backend.index.graph).__name__ == "COOGraph"
     chip_smoke.compare_records(got, want, score_atol=chip_smoke.COO_SCORE_ATOL[dtype])
 
 
@@ -88,7 +88,7 @@ def test_coo_delete_lifecycle_matches_jax(tmp_path, dtype):
     want = chip_smoke.lifecycle_record(hipporag_tpu.HippoRAG(_config(hipporag_tpu, tmp_path / "ref", dtype)), data)
     port = hipporag_tpu_torch.HippoRAG(_config(hipporag_tpu_torch, tmp_path / "port", dtype), device="cpu")
     got = chip_smoke.lifecycle_record(port, data)
-    assert type(port._index_state.graph).__name__ == "COOGraph" and "ell" not in port._capacities
+    assert type(port._backend.index.graph).__name__ == "COOGraph" and "ell" not in port._capacities
     chip_smoke.compare_lifecycle(got, want, chip_smoke.LIFECYCLE_SCORE_ATOL[dtype])
 
 

@@ -77,16 +77,23 @@ def test_dense_passage_retrieval_ranks_every_passage(records):
     assert scores == sorted(scores, reverse=True) and scores[0] == 1.0 and scores[-1] == 0.0
 
 
-def test_retrieve_dpr_bucket_padding_and_top_k(tmp_path):
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2)], ids=["single", "mesh"])
+def test_retrieve_dpr_bucket_padding_and_top_k(tmp_path, mesh_shape):
     """More queries than a bucket (sub-bucket padding across two buckets)
-    and a top-k below the passage count, against the JAX package."""
+    and a top-k below the passage count, against the JAX package on one
+    device: the port on one device, and on a (2, 2) mesh of CPU virtual
+    shards with a query count that is not a multiple of dp."""
     docs, queries, _, _ = _data()
     many = [f"{q} variant {i}" for i in range(5) for q in queries]
+    assert len(many) % 2 == 1  # not a multiple of the mesh's dp
     got, want = [], []
     for out, pkg, kw in ((want, hipporag_tpu, {}), (got, hipporag_tpu_torch, {"device": "cpu"})):
-        rag = pkg.HippoRAG(_config(tmp_path / pkg.__name__, pkg, ppr_batch_size=8), **kw)
+        shape = mesh_shape if pkg is hipporag_tpu_torch else (1, 1)
+        rag = pkg.HippoRAG(_config(tmp_path / pkg.__name__, pkg, ppr_batch_size=8, mesh_shape=shape), **kw)
         rag.index(docs)
         out.extend(rag.retrieve_dpr(many, num_to_retrieve=3))
+        if pkg is hipporag_tpu_torch:
+            assert rag._backend.dp == mesh_shape[0]
     assert len(got) == len(want) == len(many)
     for g, w in zip(got, want):
         assert g.docs == w.docs and len(g.docs) == 3

@@ -107,7 +107,7 @@ def test_bfloat16_fused_route_matches_fixture(tmp_path, monkeypatch):
 
     plain = fused_topk.scan_tiles_reference
     monkeypatch.setattr(fused_topk, "scan_tiles_reference", counted)
-    monkeypatch.setattr(scoring, "fused_topk_route", lambda b, n, device: True)
+    monkeypatch.setattr(scoring, "fused_topk_route", lambda device: True)
     cfg = _config(tmp_path)
     cfg.compute_dtype = "bfloat16"
     _retrieved, qa = _run(hipporag_tpu_torch.HippoRAG(cfg, device="cpu"))
@@ -149,13 +149,13 @@ coo = hipporag_tpu_torch.HippoRAG(hipporag_tpu_torch.BaseConfig(
     save_dir={str(tmp_path)!r} + "/coo"), device="cpu")
 coo.index(docs)
 assert all(s.docs for s in coo.retrieve(queries))
-assert type(coo._index_state.graph).__name__ == "COOGraph"
+assert type(coo._backend.index.graph).__name__ == "COOGraph"
 mesh = hipporag_tpu_torch.HippoRAG(hipporag_tpu_torch.BaseConfig(
     llm_name="mock", embedding_model_name="mock", vector_store_type="memory", mesh_shape=(1, 2),
     save_dir={str(tmp_path)!r} + "/mesh"), device="cpu")
 mesh.index(docs)
 assert [s.docs for s in mesh.retrieve(queries)] == [s.docs for s in coo.retrieve(queries)]
-assert mesh._mesh is not None and mesh._mesh.corpus == 2
+assert mesh._backend.mesh.corpus == 2
 from hipporag_tpu_torch.models.adapter import adamw, init_adapter, make_train_step
 params = init_adapter(16, 32, generator=torch.Generator().manual_seed(0), device="cpu")
 loss = make_train_step(adamw(params, 1e-2))(params, torch.randn(8, 16), torch.randn(8, 16))
@@ -247,7 +247,7 @@ def test_mesh_config_builds_and_retrieves_on_cpu_shards(tmp_path):
         rag = hipporag_tpu_torch.HippoRAG(cfg, device="cpu")
         rag.index(docs)
         sols[shape] = rag.retrieve(queries)
-        assert (rag._mesh is not None) == (shape == (1, 2))
+        assert (type(rag._backend).__name__ == "ShardedBackend") == (shape == (1, 2))
     for got, want in zip(sols[(1, 2)], sols[(1, 1)]):
         assert got.docs == want.docs
         np.testing.assert_allclose(got.doc_scores, want.doc_scores, rtol=1e-5, atol=1e-7)

@@ -129,15 +129,13 @@ def test_streaming_topk_scores_matches_jax():
 
 # Parameters one package has and the other has not, on purpose: the TPU
 # kernel's tiling, interpret mode and precision; torch's device and
-# generator (in place of a JAX PRNG key); the port's iteration counts and
-# the alias of ``use_pallas``.
+# generator (in place of a JAX PRNG key); the port's iteration counts.
 JAX_ONLY_PARAMS = {
     "fused_score_topk": {"tile_n", "interpret", "precision"},
     "init_adapter": {"key"},
 }
 PORT_ONLY_PARAMS = {
     "batched_ppr": {"return_iters"},
-    "fact_topk": {"use_fused"},
     "retrieve_knn": {"device"},
     "init_adapter": {"generator", "device"},
     "run_section": {"device"},

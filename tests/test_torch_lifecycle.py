@@ -75,7 +75,7 @@ def _ppr_iters(tag, rag):
     """PPR iteration counts over the rag's device graph, one reset at a time:
     each passage node alone, and an all-zero row (the uniform fallback)."""
     cfg = rag.global_config
-    graph = rag._index_state.graph
+    graph = (rag._index_state if tag == "ref" else rag._backend.index).graph
     resets = np.zeros((len(rag.passage_node_keys) + 1, np.asarray(graph.dangling).shape[0]), np.float32)
     for i, key in enumerate(rag.passage_node_keys):
         resets[i, rag.graph.node_to_idx[key]] = 1.0
@@ -93,7 +93,7 @@ def _ppr_iters(tag, rag):
 def _assert_same_device_state(rags):
     ref, port = rags["ref"], rags["port"]
     assert ref.ready_to_retrieve and port.ready_to_retrieve
-    g_ref, g_port = ref._index_state.graph, port._index_state.graph
+    g_ref, g_port = ref._index_state.graph, port._backend.index.graph
     assert len(g_ref.bucket_idx) == len(g_port.bucket_idx)
     for name in ("bucket_idx", "bucket_wgt"):
         for a, b in zip(getattr(g_ref, name), getattr(g_port, name)):
@@ -102,7 +102,7 @@ def _assert_same_device_state(rags):
         np.testing.assert_array_equal(np.asarray(getattr(g_ref, name)), getattr(g_port, name).numpy(), err_msg=name)
     for name in ("fact_subj_node", "fact_obj_node", "node_chunk_counts", "passage_node_ids"):
         np.testing.assert_array_equal(np.asarray(getattr(ref._index_state, name)),
-                                      getattr(port._index_state, name).numpy(), err_msg=name)
+                                      getattr(port._backend.index, name).numpy(), err_msg=name)
     for key in ("node", "edge", "fact", "passage", "ell"):
         assert ref._capacities[key] == port._capacities[key], key
     assert ref.passage_node_keys == port.passage_node_keys
@@ -116,7 +116,7 @@ def _step(rags, queries, what, **kw):
     sols = _both(rags, lambda rag: rag.retrieve(list(queries), **kw))
     _assert_same_solutions(sols["port"], sols["ref"], what)
     assert rags["port"].get_graph_info() == rags["ref"].get_graph_info(), what
-    if rags["port"]._index_state is not None and rags["port"].graph.num_edges > 0:
+    if rags["port"]._backend is not None and rags["port"].graph.num_edges > 0:
         _assert_same_device_state(rags)
     return sols["port"]
 
@@ -345,7 +345,7 @@ def test_port_lifecycle_matches_fixture(tmp_path, monkeypatch, dtype):
     routed through the fused path (its plain pass A) as every CUDA call is."""
     from hipporag_tpu_torch.ops import scoring
 
-    monkeypatch.setattr(scoring, "fused_topk_route", lambda b, n, device: True)
+    monkeypatch.setattr(scoring, "fused_topk_route", lambda device: True)
     with open(chip_smoke.LIFECYCLE_FIXTURE) as fh:
         recorded = json.load(fh)["records"][dtype]
     cfg = hipporag_tpu_torch.BaseConfig(save_dir=str(tmp_path), compute_dtype=dtype, **chip_smoke.LIFECYCLE_CONFIG)

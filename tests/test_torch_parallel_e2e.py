@@ -30,6 +30,7 @@ from hipporag_tpu.datasets import load_dataset
 from hipporag_tpu.embedding import jax_encoder as ref_encoder
 from hipporag_tpu_torch.config import BaseConfig
 from hipporag_tpu_torch.embedding import encoder as port_encoder
+from hipporag_tpu_torch.parallel.backend import ShardedBackend
 from hipporag_tpu_torch.utils.precision import full_f32
 
 torch.set_num_threads(1)
@@ -51,6 +52,13 @@ def _assert_same_ranking(got, want):
         np.testing.assert_allclose(g.doc_scores, w.doc_scores, rtol=SCORE_RTOL, atol=SCORE_ATOL)
 
 
+def _mesh(rag):
+    """The mesh a HippoRAG of either package retrieves on, or None."""
+    if isinstance(rag, hipporag_tpu.HippoRAG):
+        return rag._mesh
+    return rag._backend.mesh if isinstance(rag._backend, ShardedBackend) else None
+
+
 @pytest.fixture(scope="module")
 def mesh_runs(tmp_path_factory):
     docs, queries, _, _ = load_dataset("sample", os.path.join(ROOT, "data"))
@@ -60,13 +68,13 @@ def mesh_runs(tmp_path_factory):
         cfg = _config(tmp_path_factory.mktemp(name), pkg, mesh_shape=shape)
         rag = pkg.HippoRAG(cfg) if pkg is hipporag_tpu else pkg.HippoRAG(cfg, device="cpu")
         rag.index(docs)
-        run = {"retrieve": rag.retrieve(queries), "mesh": rag._mesh}
+        run = {"retrieve": rag.retrieve(queries), "mesh": _mesh(rag)}
         if pkg is hipporag_tpu_torch:
             run["dpr"] = rag.retrieve_dpr(queries)
             run["dense"] = rag.dense_passage_retrieval(queries[1])
         rag.delete(docs[:2])
         run["after_delete"] = rag.retrieve(queries)
-        run["after_delete_mesh"] = rag._mesh
+        run["after_delete_mesh"] = _mesh(rag)
         runs[name] = run
     return runs
 

@@ -1,4 +1,5 @@
-"""The port's result building (``HippoRAG._build_results``).
+"""The port's result building (``hipporag.build_results``, which
+``HippoRAG._build_results`` and ``StandardRAG.retrieve`` call).
 
 - Parity: the bucket-level builder against the per-question loop it
   replaced, kept here as the reference, over random buckets with -inf
@@ -10,7 +11,9 @@
   ``delete``, retrieve; each retrieve returns the current contents and
   metadata, so the passage-aligned tables follow the stores. On the single
   device and on a ``mesh_shape=(1, 2)`` index of CPU virtual shards,
-  through ``retrieve`` and ``retrieve_dpr``.
+  through ``retrieve`` and ``retrieve_dpr``, and through
+  ``StandardRAG.retrieve`` on the single device (its results carry no
+  graph seeds).
 """
 
 import copy
@@ -22,6 +25,7 @@ import torch
 
 import hipporag_tpu_torch
 from hipporag_tpu_torch.datasets import load_dataset
+from hipporag_tpu_torch.parallel.backend import ShardedBackend
 from hipporag_tpu_torch.utils.misc import Chunk, QuerySolution
 
 torch.set_num_threads(1)
@@ -146,17 +150,26 @@ def _expected_metadata(chunk):
     return meta
 
 
-@pytest.mark.parametrize("entry", ["retrieve", "retrieve_dpr"])
-@pytest.mark.parametrize("mesh_shape", [(1, 1), (1, 2)], ids=["single", "sharded"])
+RETRIEVE_CASES = [((1, 1), "retrieve"), ((1, 1), "retrieve_dpr"), ((1, 2), "retrieve"), ((1, 2), "retrieve_dpr"),
+                  ((1, 1), "standard_rag.retrieve")]
+
+
+@pytest.mark.parametrize("mesh_shape,entry", RETRIEVE_CASES,
+                         ids=[f"{'single' if m == (1, 1) else 'sharded'}-{e}" for m, e in RETRIEVE_CASES])
 def test_each_retrieve_returns_the_current_contents_and_metadata(tmp_path, mesh_shape, entry):
     docs, queries = _sample()
-    rag = hipporag_tpu_torch.HippoRAG(_config(tmp_path, mesh_shape=mesh_shape), device="cpu")
+    standard = entry.startswith("standard_rag.")
+    cls = hipporag_tpu_torch.StandardRAG if standard else hipporag_tpu_torch.HippoRAG
+    rag = cls(_config(tmp_path, mesh_shape=mesh_shape), device="cpu")
     rag.index(docs)
     corpus = {d: {} for d in docs}
 
     def check():
-        results = getattr(rag, entry)(queries)
-        assert (rag._mesh is not None) == (mesh_shape != (1, 1))
+        results = getattr(rag, entry.rsplit(".", 1)[-1])(queries)
+        if standard:
+            assert all(r.graph_seeds is None for r in results)
+        else:
+            assert isinstance(rag._backend, ShardedBackend) == (mesh_shape != (1, 1))
         for r in results:
             # retrieval_top_k (200) is above the passage count: every
             # passage comes back, once, with its own metadata

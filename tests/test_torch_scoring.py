@@ -182,24 +182,23 @@ def test_batched_scores_bfloat16_matches_jax():
 
 
 def test_fact_topk_routes_to_the_kernel_only_on_cuda():
-    assert scoring.fused_topk_route(128, 262144, "cuda") is True
-    assert scoring.fused_topk_route(128, 262144, torch.device("cuda", 0)) is True
-    assert scoring.fused_topk_route(128, 262144, "cpu") is False
+    assert scoring.fused_topk_route("cuda") is True
+    assert scoring.fused_topk_route(torch.device("cuda", 0)) is True
+    assert scoring.fused_topk_route("cpu") is False
     q, keys = _inputs(2, 300, 64, 300, seed=5)
     vals, idx = scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys), 300, 5)
     j_vals, j_idx = ref.fact_topk(jnp.asarray(q), jnp.asarray(keys), 300, 5)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
     np.testing.assert_allclose(vals.numpy(), np.asarray(j_vals), rtol=1e-6)
-    # use_pallas is the JAX package's name for the route; use_fused its alias
-    for kw in ({"use_fused": True}, {"use_pallas": True}):
-        f_vals, f_idx = scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys), 300, 5, **kw)
-        np.testing.assert_array_equal(f_idx.numpy(), np.asarray(j_idx))
-        np.testing.assert_allclose(f_vals.numpy(), np.asarray(j_vals), rtol=1e-5, atol=1e-6)
+    # use_pallas, the JAX package's name for the route, is the only one
+    f_vals, f_idx = scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys), 300, 5, use_pallas=True)
+    np.testing.assert_array_equal(f_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_allclose(f_vals.numpy(), np.asarray(j_vals), rtol=1e-5, atol=1e-6)
     p_vals, p_idx = scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys), 300, 5, "float32", False)
     np.testing.assert_array_equal(p_idx.numpy(), np.asarray(j_idx))
     np.testing.assert_array_equal(p_vals.numpy(), vals.numpy())
-    with pytest.raises(ValueError):
-        scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys), 300, 5, use_pallas=True, use_fused=False)
+    with pytest.raises(TypeError):
+        scoring.fact_topk(torch.from_numpy(q), torch.from_numpy(keys), 300, 5, use_fused=True)
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +236,7 @@ def test_default_route_fact_topk_matches_jax_at_scale(monkeypatch, compute_dtype
     compute that is its XLA path, which rounds the queries to bf16 too."""
     b, n, d, k = 128, 32_768, 1_024, 5
     q, keys = _unit_keys_near_queries(b, n, d, seed=11)
-    monkeypatch.setattr(scoring, "fused_topk_route", lambda b, n, device: True)
+    monkeypatch.setattr(scoring, "fused_topk_route", lambda device: True)
     seen = _record_fused_queries(monkeypatch)
     resident = torch.from_numpy(keys).to(torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32)
     norm, idx = scoring.fact_topk(torch.from_numpy(q), resident, n, k, compute_dtype)
@@ -255,14 +254,13 @@ def test_explicit_use_pallas_keeps_f32_queries_as_the_jax_kernel():
     q, keys = _unit_keys_near_queries(16, 2_048, 256, seed=12)
     keys16 = torch.from_numpy(keys).to(torch.bfloat16)
     j_keys = jnp.asarray(keys).astype(jnp.bfloat16)
-    for kw in ({"use_pallas": True}, {"use_fused": True}):
-        with pytest.MonkeyPatch.context() as mp:
-            seen = _record_fused_queries(mp)
-            norm, idx = scoring.fact_topk(torch.from_numpy(q), keys16, 2_000, 5, "bfloat16", **kw)
-        assert torch.equal(seen[0][0], torch.from_numpy(q)), kw
-        j_norm, _raw, j_idx = ref_fused.fused_score_topk(jnp.asarray(q), j_keys, 2_000, 5, interpret=True)
-        np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
-        np.testing.assert_allclose(norm.numpy(), np.asarray(j_norm), rtol=0, atol=1e-6)
+    with pytest.MonkeyPatch.context() as mp:
+        seen = _record_fused_queries(mp)
+        norm, idx = scoring.fact_topk(torch.from_numpy(q), keys16, 2_000, 5, "bfloat16", use_pallas=True)
+    assert torch.equal(seen[0][0], torch.from_numpy(q))
+    j_norm, _raw, j_idx = ref_fused.fused_score_topk(jnp.asarray(q), j_keys, 2_000, 5, interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_allclose(norm.numpy(), np.asarray(j_norm), rtol=0, atol=1e-6)
 
 
 def test_bf16_query_rounding_rule_at_the_threshold(monkeypatch):
@@ -285,7 +283,7 @@ def test_bf16_query_rounding_rule_at_the_threshold(monkeypatch):
     # fact_topk at both sides, with the threshold moved to a small size;
     # float32 keys are rounded with the queries, as batched_scores rounds them
     q, keys = _unit_keys_near_queries(4, 512, 64, seed=13)
-    monkeypatch.setattr(scoring, "fused_topk_route", lambda b, n, device: True)
+    monkeypatch.setattr(scoring, "fused_topk_route", lambda device: True)
     seen = _record_fused_queries(monkeypatch)
     for threshold, want_rounded in ((4 * 512 * 4, True), (4 * 512 * 4 - 1, False)):
         monkeypatch.setattr(scoring, "BF16_QUERY_ROUNDING_SCORE_BYTES", threshold)

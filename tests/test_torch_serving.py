@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from hipporag_tpu_torch import BaseConfig, HippoRAG, load_dataset
+from hipporag_tpu_torch.parallel.backend import ShardedBackend
 from hipporag_tpu_torch.serving import (
     BatcherClosed,
     BatcherSaturated,
@@ -302,7 +303,7 @@ def test_service_over_sharded_backend(tmp_path, served_rag):
     with RetrievalService(rag, max_wait_ms=20) as svc:
         with ThreadPoolExecutor(max_workers=len(queries)) as pool:
             served = list(pool.map(svc.retrieve, queries))
-    assert rag._mesh is not None, "sharded backend not active"
+    assert isinstance(rag._backend, ShardedBackend), "sharded backend not active"
     for q, s in zip(queries, served):
         assert s.docs == want[q]
 
@@ -1192,7 +1193,7 @@ def test_sharded_serving_soak_native_frontend(tmp_path):
 
     try:
         svc.retrieve("warm", top_k=2)
-        assert rag._mesh is not None, "sharded backend not active"
+        assert isinstance(rag._backend, ShardedBackend), "sharded backend not active"
 
         def client(i):
             n = 0

@@ -125,7 +125,7 @@ def test_retrieve_records_one_call_of_stage_spans(single, sample, pipelined):
 
 def test_the_sharded_path_records_the_same_stages(sharded, sample):
     rag, off = sharded
-    assert rag._mesh is not None and rag._mesh.corpus == 2
+    assert rag._backend.mesh.corpus == 2
     with recording() as rec:
         on = rag.retrieve(sample[1])
     _check_call(rec.spans(), sample[1], on)
@@ -238,7 +238,7 @@ def test_the_solver_counts_each_tile_and_its_iterations(solver):
 
 def test_graph_search_counts_the_iterations_it_returns(single):
     rag, _ = single
-    index = rag._index_state
+    index = rag._backend.index
     rng = np.random.default_rng(2)
     b, k = 130, 5
     sel = torch.from_numpy(rng.uniform(0.1, 1.0, (b, k)).astype(np.float32))
