@@ -91,6 +91,7 @@ from .ops.scoring import (
 logger = get_logger(__name__)
 
 RETRIEVAL_K_LIST = [1, 2, 5, 10, 20, 30, 50, 100, 150, 200]
+FILTER_CALLS_PER_BUCKET = 16
 
 
 def _fan_out(fn, items, max_workers: int = 16):
@@ -353,8 +354,11 @@ class HippoRAG:
         else:
             self.openie = LLMOpenIE(self.extraction_llm)
         self.prompt_template_manager = PromptTemplateManager()
+        # the filter keeps FILTER_CALLS_PER_BUCKET LLM calls in flight for each
+        # bucket it filters at once (pipeline_depth of them when pipelined)
+        buckets = max(1, self.global_config.pipeline_depth) if self.global_config.pipeline_rerank else 1
         self.rerank_filter = RecognitionMemoryFilter(
-            self.llm, self.global_config.rerank_dspy_file_path
+            self.llm, self.global_config.rerank_dspy_file_path, FILTER_CALLS_PER_BUCKET * buckets
         )
         self.preprocessor = text_preprocessor or get_preprocessor(self.global_config)
         self.text_preprocessor = self.preprocessor
@@ -810,14 +814,19 @@ class HippoRAG:
         fact_subj = np.full(fact_cap, pad_slot, dtype=np.int32)
         fact_obj = np.full(fact_cap, pad_slot, dtype=np.int32)
         rows = self.fact_embedding_store.get_rows(self.fact_node_keys)
+        # fact-row-aligned tables for the filter: each fact's triple and the
+        # JSON text its prompt and matching use
         self._fact_tuples: List[Tuple[str, str, str]] = []
+        fact_texts = []
         for i, fid in enumerate(self.fact_node_keys):
             triple = _parse_fact_text(rows[fid]["content"])
             self._fact_tuples.append(triple)
+            fact_texts.append(_fact_text(triple))
             si = self.graph.node_to_idx.get(compute_mdhash_id(triple[0], prefix="entity-"))
             oi = self.graph.node_to_idx.get(compute_mdhash_id(triple[2], prefix="entity-"))
             fact_subj[i] = si if si is not None else pad_slot
             fact_obj[i] = oi if oi is not None else pad_slot
+        self._fact_texts = np.array(fact_texts, dtype=object)
 
         node_chunk_counts = np.zeros(node_cap, dtype=np.float32)
         for ent, chunks in self.graph.ent_node_to_chunk_ids.items():
@@ -899,33 +908,40 @@ class HippoRAG:
     def _rerank_candidates(
         self, batch_queries, cand_idx, cand_vals, link_top_k, b_pad, num_facts
     ):
-        """Recognition-memory filtering, fanned out host-side (LLM-bound);
+        """Recognition-memory filtering of a bucket in one pass: the
+        candidates' texts gathered from the fact-text table, then
+        ``rerank_filter.select`` (its LLM calls on the filter's executor);
         counts the candidates in and the facts kept on the open span."""
         top_idx = np.zeros((b_pad, link_top_k), dtype=np.int32)
         top_mask = np.zeros((b_pad, link_top_k), dtype=np.float32)
         sel_scores = np.zeros((b_pad, link_top_k), dtype=np.float32)
         batch_top_facts: List[List[Tuple]] = [[] for _ in range(b_pad)]
         if num_facts > 0:
-            rerank_inputs = []
-            for i, q in enumerate(batch_queries):
-                cands = [int(j) for j, v in zip(cand_idx[i], cand_vals[i]) if v > -np.inf]
-                items = [self._fact_tuples[j] for j in cands]
-                rerank_inputs.append((q, items, cands))
-            count("candidates", sum(len(c) for _q, _items, c in rerank_inputs))
+            b = len(batch_queries)
+            idx, vals = np.asarray(cand_idx[:b]), np.asarray(cand_vals[:b])
+            valid = vals > -np.inf
+            rows = idx[valid].tolist()
+            texts = self._fact_texts[idx[valid]].tolist()
+            ends = np.cumsum(valid.sum(axis=1)).tolist()
+            starts = [0] + ends[:-1]
+            count("candidates", len(rows))
+            kept = self.rerank_filter.select(batch_queries, [texts[s:e] for s, e in zip(starts, ends)])
 
-            def _rerank(args):
-                q, items, cands = args
-                return self.rerank_filter.rerank(q, items, cands, link_top_k)
-
-            reranked = _fan_out(_rerank, rerank_inputs)
-
-            for i, (sorted_idx, sorted_items, _) in enumerate(reranked):
-                batch_top_facts[i] = sorted_items
-                val_by_row = {int(j): float(v) for j, v in zip(cand_idx[i], cand_vals[i])}
-                for k, fact_row in enumerate(sorted_idx[:link_top_k]):
-                    top_idx[i, k] = fact_row
-                    top_mask[i, k] = 1.0
-                    sel_scores[i, k] = val_by_row.get(int(fact_row), 0.0)
+            picked_q, picked_k, picked_rows = [], [], []
+            for i, (start, positions) in enumerate(zip(starts, kept)):
+                picked = [rows[start + p] for p in positions[:link_top_k]]
+                batch_top_facts[i] = [self._fact_tuples[r] for r in picked]
+                picked_q += [i] * len(picked)
+                picked_k += range(len(picked))
+                picked_rows += picked
+            if picked_rows:
+                top_idx[picked_q, picked_k] = picked_rows
+                top_mask[picked_q, picked_k] = 1.0
+                # a kept row scores as its last entry among the question's
+                # candidates, -inf padding included
+                hits = idx[picked_q] == np.asarray(picked_rows)[:, None]
+                last = hits.shape[1] - 1 - np.argmax(hits[:, ::-1], axis=1)
+                sel_scores[picked_q, picked_k] = vals[picked_q, last]
             count("facts_kept", int(top_mask.sum()))
         return top_idx, top_mask, sel_scores, batch_top_facts
 

@@ -6,6 +6,10 @@ markers, response parsed into ``{"fact": [[s, p, o], ...]}``, generated
 facts matched back to the candidate list by closest string match, order
 preserved, truncated to ``len_after_rerank``.
 
+A bucket of questions is filtered in one pass (:meth:`RecognitionMemoryFilter.select`):
+prompts are built, and responses parsed and matched, on the calling thread;
+only the LLM calls go to an executor the filter holds.
+
 Safe-parsing difference: candidate matching uses JSON round-trips rather
 than ``ast.literal_eval`` on LLM output.
 """
@@ -16,13 +20,16 @@ import difflib
 import json
 import os
 import re
-from copy import deepcopy
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 from .llm.base import BaseLLM
 from .prompts.filter_prompt import best_filter_prompt
 from .utils.llm_json import extract_json_dict
 from .utils.logging import get_logger
+from .utils.timing import count
 
 logger = get_logger(__name__)
 
@@ -42,20 +49,16 @@ def _closest_candidate(s: str, candidate_strs: List[str]) -> Optional[int]:
     """Index of the candidate closest to ``s`` — result-identical to
     ``difflib.get_close_matches(s, candidate_strs, n=1, cutoff=0.0)`` +
     ``candidate_strs.index(...)`` (reference filter matching,
-    dspy_filter.py), but fast in the common cases: an exact echo (a good
-    filter model copies facts verbatim — ratio 1.0 is only reachable by
-    an equal string, and ``.index`` takes its first occurrence)
-    short-circuits, and the fuzzy scan prunes with difflib's own upper
+    dspy_filter.py), but faster: the scan prunes with difflib's own upper
     bounds against the best-so-far instead of a cutoff of 0.0, which
     prunes nothing. Ratio ties resolve to the lexicographically largest
     candidate STRING (``nlargest`` compares (ratio, string) tuples) and
-    then to that string's first index — the reference quirk, preserved."""
+    then to that string's first index — the reference quirk, preserved.
+    An exact echo (ratio 1.0, reachable only by an equal string) is the
+    common case; :meth:`RecognitionMemoryFilter.select` looks it up before
+    calling this."""
     if not candidate_strs:
         return None
-    try:
-        return candidate_strs.index(s)
-    except ValueError:
-        pass
     sm = difflib.SequenceMatcher()
     sm.set_seq2(s)
     best_str, best_ratio = None, -1.0
@@ -100,10 +103,16 @@ def parse_filter_response(response: str) -> List[List[str]]:
 
 
 class RecognitionMemoryFilter:
-    """LLM-based candidate-fact filter ("recognition memory")."""
+    """LLM-based candidate-fact filter ("recognition memory").
 
-    def __init__(self, llm: BaseLLM, dspy_file_path: Optional[str] = None):
+    ``max_workers`` bounds the LLM calls in flight, over every caller of
+    :meth:`select` at once; their executor is made on first use."""
+
+    def __init__(self, llm: BaseLLM, dspy_file_path: Optional[str] = None, max_workers: int = 16):
         self.llm = llm
+        self.max_workers = max_workers
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._pool_lock = threading.Lock()
         prompt_spec = best_filter_prompt
         if dspy_file_path:
             path = dspy_file_path
@@ -139,20 +148,71 @@ class RecognitionMemoryFilter:
                 }
             )
 
-    def llm_call(self, question: str, fact_before_filter: str) -> str:
-        messages = deepcopy(self.message_template)
+    def _messages(self, question: str, candidate_strs: List[str]) -> List[Dict[str, str]]:
+        """The chat for one question: copies of the template's messages and
+        the question's. ``candidate_strs`` are the facts' JSON texts, so the
+        payload is ``json.dumps({"fact": [list(c) for c in facts]})``."""
+        payload = '{"fact": [' + ", ".join(candidate_strs) + "]}"
+        messages = [dict(m) for m in self.message_template]
         messages.append(
             {
                 "role": "user",
-                "content": _INPUT_TEMPLATE.format(
-                    question=question, fact_before_filter=fact_before_filter
-                ),
+                "content": _INPUT_TEMPLATE.format(question=question, fact_before_filter=payload),
             }
         )
+        return messages
+
+    def _infer(self, messages: List[Dict[str, str]]) -> str:
         response, _, _ = self.llm.infer(
             messages, max_completion_tokens=512, response_format=None
         )
         return response
+
+    def _executor(self) -> ThreadPoolExecutor:
+        with self._pool_lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=self.max_workers, thread_name_prefix="filter")
+            return self._pool
+
+    def select(self, questions: List[str], candidate_strs: List[List[str]]) -> List[List[int]]:
+        """For each question, the positions in its candidates of the facts
+        the LLM kept, in the LLM's order and without repeats.
+
+        ``candidate_strs[i]`` are question ``i``'s candidate facts as JSON
+        texts (``json.dumps(list(fact))``). The LLM calls run on the
+        filter's executor (one question's inline); a question whose call or
+        response fails keeps no facts. A generated fact that no candidate
+        text equals goes to the closest-match scan and is counted as
+        ``facts_fuzzy`` on the span open on this thread."""
+        prompts = [self._messages(q, strs) for q, strs in zip(questions, candidate_strs)]
+        if len(prompts) > 1:
+            pool = self._executor()
+            calls = [pool.submit(self._infer, m).result for m in prompts]
+        else:
+            calls = [partial(self._infer, m) for m in prompts]
+        kept, fuzzy = [], 0
+        for strs, call in zip(candidate_strs, calls):
+            try:
+                generated = parse_filter_response(call())
+            except Exception as e:  # noqa: BLE001 — filter failure falls back to no facts
+                logger.warning("Filter call failed: %s", e)
+                generated = []
+            first: Dict[str, int] = {}
+            for i, text in enumerate(strs):
+                first.setdefault(text, i)
+            picked: Dict[int, None] = {}
+            for fact in generated:
+                text = json.dumps(fact)
+                idx = first.get(text)
+                if idx is None:
+                    fuzzy += 1
+                    idx = _closest_candidate(text, strs)
+                    if idx is None:
+                        continue
+                picked.setdefault(idx)
+            kept.append(list(picked))
+        count("facts_fuzzy", fuzzy)
+        return kept
 
     def rerank(
         self,
@@ -161,28 +221,12 @@ class RecognitionMemoryFilter:
         candidate_indices: List[int],
         len_after_rerank: Optional[int] = None,
     ) -> Tuple[List[int], List[Tuple], Dict]:
-        fact_payload = json.dumps({"fact": [list(c) for c in candidate_items]})
-        try:
-            response = self.llm_call(query, fact_payload)
-            generated = parse_filter_response(response)
-        except Exception as e:  # noqa: BLE001 — filter failure falls back to no facts
-            logger.warning("Filter call failed: %s", e)
-            generated = []
-
-        candidate_strs = [json.dumps(list(c)) for c in candidate_items]
-        result_indices: List[int] = []
-        for fact in generated:
-            idx = _closest_candidate(json.dumps(fact), candidate_strs)
-            if idx is None:
-                continue
-            if idx not in result_indices:
-                result_indices.append(idx)
-
-        sorted_indices = [candidate_indices[i] for i in result_indices]
-        sorted_items = [candidate_items[i] for i in result_indices]
+        """:meth:`select` for one question over its candidate facts."""
+        (kept,) = self.select([query], [[json.dumps(list(c)) for c in candidate_items]])
+        kept = kept[:len_after_rerank]
         return (
-            sorted_indices[:len_after_rerank],
-            sorted_items[:len_after_rerank],
+            [candidate_indices[i] for i in kept],
+            [candidate_items[i] for i in kept],
             {"confidence": None},
         )
 

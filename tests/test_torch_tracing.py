@@ -5,7 +5,9 @@ A ``retrieve`` under ``recording()`` gives one call's tree of stage spans,
 serially, with the filter pipelined on worker threads and on a mesh of
 virtual shards; with recording off it records nothing and opens no
 profiler range; under a profiler every span is a ``user_annotation`` of
-its name at the same time. Result building counts the passages it places. The PageRank solvers count per tile the
+its name at the same time. Result building counts the passages it places.
+The filter counts its candidates, the facts it kept and the generated
+facts it matched by the closest-match scan (``facts_fuzzy``). The PageRank solvers count per tile the
 iterations they return, and rankings do not depend on recording.
 """
 
@@ -130,6 +132,50 @@ def test_the_sharded_path_records_the_same_stages(sharded, sample):
         on = rag.retrieve(sample[1])
     _check_call(rec.spans(), sample[1], on)
     _same_rankings(on, off)
+
+
+class _FilterLLM:
+    """Answers the filter with the facts it was shown, echoed or each with
+    its subject's last character dropped; counts the facts shown."""
+
+    def __init__(self, paraphrase):
+        self.paraphrase, self.shown = paraphrase, 0
+        self._lock = threading.Lock()
+
+    def infer(self, messages, **kwargs):
+        shown = messages[-1]["content"].split("[[ ## fact_before_filter ## ]]\n", 1)[1].split("\n\n", 1)[0]
+        facts = json.loads(shown)["fact"]
+        with self._lock:
+            self.shown += len(facts)
+        if self.paraphrase:
+            facts = [[s[:-1], p, o] for s, p, o in facts]
+        return f"[[ ## fact_after_filter ## ]]\n{json.dumps({'fact': facts})}\n\n[[ ## completed ## ]]", {}, False
+
+
+@pytest.mark.parametrize("paraphrase", [False, True], ids=["echo", "paraphrase"])
+def test_the_filter_counts_its_candidates_kept_and_fuzzy_facts(single, sample, paraphrase):
+    """Each bucket's ``retrieve/filter`` counts as ``facts_fuzzy`` the
+    generated facts no candidate text equals: none from an echo, every
+    fact from a paraphrase. ``candidates`` are the facts shown and
+    ``facts_kept`` those its results carry; an echo keeps them all."""
+    rag, _ = single
+    queries = sample[1]
+    llm, held = _FilterLLM(paraphrase), rag.rerank_filter.llm
+    rag.rerank_filter.llm = llm
+    try:
+        with recording() as rec:
+            results = rag.retrieve(queries)
+    finally:
+        rag.rerank_filter.llm = held
+    filters = {s.attrs["bucket"]: s.attrs for s in rec.spans() if s.name == "retrieve/filter"}
+    assert sorted(filters) == list(range(-(-len(queries) // BUCKET)))
+    for b, attrs in filters.items():
+        kept = sum(len(r.graph_seeds) for r in results[b * BUCKET : (b + 1) * BUCKET])
+        assert attrs["facts_kept"] == kept > 0
+        assert attrs["facts_fuzzy"] == (attrs["candidates"] if paraphrase else 0)
+        if not paraphrase:
+            assert attrs["candidates"] == kept
+    assert sum(a["candidates"] for a in filters.values()) == llm.shown > 0
 
 
 class _CountingRange(torch.autograd.profiler.record_function):
