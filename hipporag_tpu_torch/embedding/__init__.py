@@ -5,7 +5,9 @@ model-family substrings (NV-Embed-v2, GritLM, contriever) and explicit
 prefixes select backends; anything else goes to the OpenAI-compatible
 client. ``jax/<spec>`` names (the JAX package's on-device encoder) go to
 the port's encoder on the given torch device, so one configuration drives
-both packages.
+both packages. ``NV-Embed-v2/random[-<key>=<value>,...]`` names go to the
+port's on-device NV-Embed-v2 with weights drawn from a seed
+(``nvembed_encoder.py``); other NV-Embed-v2 names load a checkpoint.
 """
 
 from __future__ import annotations
@@ -42,6 +44,10 @@ def get_embedding_model(config: BaseConfig, device: Union[str, torch.device] = "
         from .vllm_embed import VLLMEmbeddingModel
 
         return VLLMEmbeddingModel(config)
+    if name == "NV-Embed-v2/random" or name.startswith("NV-Embed-v2/random-"):
+        from .nvembed_encoder import NVEmbedV2DeviceEmbeddingModel
+
+        return NVEmbedV2DeviceEmbeddingModel(config, device=device)
     if "NV-Embed-v2" in name:
         from .nvembed import NVEmbedV2EmbeddingModel
 
