@@ -6,7 +6,7 @@
 from the repository root, on a machine with a CUDA GPU, nvcc and PyTorch
 built for CUDA (no JAX needed). It builds the hand-written CUDA kernel from
 ``hipporag_tpu_torch/csrc`` and the native graph core from
-``hipporag_tpu_torch/graph/native`` and runs ten phases; any failure ends
+``hipporag_tpu_torch/graph/native`` and runs eleven phases; any failure ends
 the run with a non-zero exit:
 
 1. Kernel vs plain: ``fused_score_topk`` (CUDA pass A) against
@@ -115,6 +115,18 @@ the run with a non-zero exit:
    PageRank (the phase-2 bucket, 3, 5, 6's served window, 7c-e, 7g, 9's
    multihop) is held on its own to its ``retrieve/ppr`` spans: K2 launched
    once per iteration on the ELL route, never on COO (``k2_path``).
+11. NV-Embed-v2's decoder-layer kernels (``csrc/nvembed_layer.cu``:
+   ``add_rms_norm``, ``rope_qkv``, ``masked_softmax``, ``ungroup_operand``,
+   ``swiglu``): each against its plain version (``<op>_plain``) on the same
+   inputs, at the ``nvembed2-7b-musique.batch`` cell's forwards (16 x 18,
+   16 x 22) and published widths and at a ragged shape whose widths take
+   every narrow branch, writing bfloat16 and float32; each timed inside a
+   CUDA graph against its plain version and its least time by bytes; the
+   published model's forward (weights drawn on the card): its launches of
+   each kernel eager (192 a forward), as captured and in a traced replay,
+   its unit rows and time against the forward captured through the plain
+   versions; and the ``retrieve/embed`` span's ``fused_kernels`` against
+   its ``forwards``.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Neither JAX nor ``hipporag_tpu`` may be
@@ -277,6 +289,32 @@ CORPUS_SECTIONS = ("2wiki", "hotpot", "musique", "replay")
 K2_WIDTHS = (8, 32, 104, 128)
 K2_BENCH_SEED = 2147483653
 PASSAGE_WEIGHT = 0.05
+# phase 11: NV-Embed-v2's layer kernels at the forwards of the
+# nvembed2-7b-musique.batch cell (16 texts of 18 or 22 tokens) and published
+# widths, and at a ragged shape whose widths take every narrow branch
+# (D % 4, F % 4, head_dim % 8 and head_dim % 4 all nonzero)
+NV_OPS = ("add_rms_norm", "rope_qkv", "masked_softmax", "ungroup_operand", "swiglu")
+NV_KERNELS = {"add_rms_norm": "add_rms_norm_kernel", "rope_qkv": "rope_qkv_kernel",
+              "masked_softmax": "masked_softmax_kernel", "ungroup_operand": "ungroup_kernel",
+              "swiglu": "swiglu_kernel"}  # the kernels' names in a device trace
+NV_SHAPES = ((16, 18), (16, 22))
+NV_WIDTHS = dict(d=4096, f=14336, heads=32, kv_heads=8, head_dim=128)
+NV_RAGGED = (3, 37, dict(d=4094, f=1021, heads=6, kv_heads=2, head_dim=6))
+# kernel against plain version: bf16 outputs at most one bf16 step apart on
+# at most NV_DIFFER_SHARE of the elements; float32 outputs to NV_F32_RTOL.
+# add_rms_norm sums its squares in another order than torch, so its rsqrt
+# may differ in the last place and flip a bf16 rounding (in 1-6 of 0.45-1.4
+# M elements); each element where its bf16 output differs must be a rounding
+# tie: the exact (float64) value within NV_TIE_RTOL of the midpoint between
+# the two bf16 values (float32 sums of 4,096 squares err by up to ~4e-7)
+NV_DIFFER_SHARE, NV_F32_RTOL, NV_TIE_RTOL = 1e-5, 1e-6, 2.0**-20
+# the replayed forward's unit rows against the forward through the plain
+# versions: the kernels' forward read 0.024-0.033 (add_rms_norm's rsqrt
+# differs from torch's in a few rows, carried through 32 random layers); the
+# bf16 forward lies 0.074-0.080 from float32
+NV_FORWARD_L2 = 0.04
+NV_COLD_BYTES = 128 << 20  # inputs cycled per timing: over twice the 50 MB L2
+NV_TIMED_CALLS = 200
 
 
 def scan_delta(q, keys):
@@ -2434,6 +2472,278 @@ def phase10_k2(device, bench_seed=K2_BENCH_SEED):
     return out
 
 
+# ----------------------------------------------------------------------
+# Phase 11: NV-Embed-v2's decoder-layer kernels (csrc/nvembed_layer.cu)
+# ----------------------------------------------------------------------
+def nv_rope_tables(l, hd, device):
+    """(cos, signed sin) [l, 1, hd], as ``NVEmbedV2Encoder.rope_tables`` makes them."""
+    inv_freq = 1.0 / 10000.0 ** (torch.arange(0, hd, 2, device=device).float() / hd)
+    angles = torch.arange(l, device=device).float()[:, None] * inv_freq
+    return (torch.cat((angles.cos(), angles.cos()), -1)[:, None],
+            torch.cat((-angles.sin(), angles.sin()), -1)[:, None])
+
+
+def nv_op_cases(b, l, widths, device, dtype, gen=None):
+    """case -> (op, draw, bytes): ``draw()`` gives fresh random inputs of one
+    of the five layer ops at B = ``b``, L = ``l`` and ``widths``
+    (``NV_WIDTHS``' keys), writing operands in ``dtype``; add_rms_norm with
+    the residual's add and without it (the first layer). ``bytes`` reads
+    each input once and writes each output once."""
+    d, f, heads, kv, hd = (widths[k] for k in ("d", "f", "heads", "kv_heads", "head_dim"))
+    m, rep, ob = b * l, heads // kv, torch.empty((), dtype=dtype).element_size()
+    width = (heads + 2 * kv) * hd
+
+    def randn(*size, scale=1.0):
+        return scale * torch.randn(*size, generator=gen, device=device)
+
+    scale = 1 + 0.1 * randn(d)
+    cos, sin = nv_rope_tables(l, hd, device)
+    lengths = torch.tensor([max(1, l - (i % 5)) for i in range(b)], device=device)
+    return {
+        "add_rms_norm": ("add_rms_norm", lambda: (randn(m, d), randn(m, d), scale, 1e-5, dtype),
+                         m * d * (12 + ob) + 4 * d),
+        "add_rms_norm.first_layer": ("add_rms_norm", lambda: (randn(m, d), None, scale, 1e-5, dtype),
+                                     m * d * (4 + ob) + 4 * d),
+        "rope_qkv": ("rope_qkv", lambda: (randn(b, l, width), cos, sin, heads, kv, dtype),
+                     m * width * (4 + ob) + 8 * l * hd),
+        "masked_softmax": ("masked_softmax", lambda: (randn(b * kv, rep * l, l, scale=8.0), lengths, hd ** -0.5,
+                                                      dtype),
+                           b * kv * rep * l * l * (4 + ob) + 8 * b),
+        "ungroup_operand": ("ungroup_operand", lambda: (randn(b * kv, rep * l, hd), b, heads, dtype),
+                            m * heads * hd * (4 + ob)),
+        "swiglu": ("swiglu", lambda: (randn(m, 2 * f, scale=2.0), dtype), m * f * (8 + ob)),
+    }
+
+
+def bf16_steps_apart(got, want):
+    """Elementwise: the bfloat16 steps (of the larger magnitude's binade)
+    between two bfloat16 tensors."""
+    g, w = got.float(), want.float()
+    _m, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    return (g - w).abs() / torch.ldexp(torch.ones_like(g), e - 8)
+
+
+def _fresh(args):
+    return [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def nv_held_to_plain(case, op, args):
+    """Run ``op``'s kernel and its plain version on copies of ``args`` and
+    hold every output (add_rms_norm's residual, updated in place, too) to
+    the plain one: bfloat16 at most one step apart, on at most
+    ``NV_DIFFER_SHARE`` of the elements (add_rms_norm: only at rounding ties
+    of the exact value), float32 within ``NV_F32_RTOL``. Returns what
+    differs."""
+    from hipporag_tpu_torch.embedding import nvembed_encoder as nv
+
+    kernel_args, plain_args = _fresh(args), _fresh(args)
+    got, want = getattr(nv, op)(*kernel_args), getattr(nv, op + "_plain")(*plain_args)
+    pairs = [(g, w, None) for g, w in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,))))]
+    if op == "add_rms_norm":
+        x, scale, eps = plain_args[0].double(), args[2].double(), args[3]
+        pairs = [(got, want, x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps) * scale),
+                 (kernel_args[0], plain_args[0], None)]
+    rec = {"bf16_differ": 0, "bf16_elements": 0, "max_bf16_steps": 0.0, "untied": 0, "f32_max_rel": 0.0}
+    for g, w, exact in pairs:
+        check(g.dtype == w.dtype and g.shape == w.shape and g.device == w.device,
+              f"{case}: kernel gave {g.dtype} {tuple(g.shape)}, plain {w.dtype} {tuple(w.shape)}")
+        if g.dtype == torch.bfloat16:
+            differ = g != w
+            rec["max_bf16_steps"] = max(rec["max_bf16_steps"], bf16_steps_apart(g, w).max().item())
+            rec["bf16_differ"] += int(differ.sum())
+            rec["bf16_elements"] += g.numel()
+            if exact is not None:
+                mid, e = (g[differ].double() + w[differ].double()) / 2, exact[differ]
+                rec["untied"] += int(((e - mid).abs() > NV_TIE_RTOL * e.abs()).sum())
+        else:
+            over = int(((g - w).abs() > NV_F32_RTOL * w.abs()).sum())
+            rel = ((g - w).abs() / w.abs()).nan_to_num(nan=0.0).max().item()
+            check(over == 0, f"{case}: {over} float32 elements beyond {NV_F32_RTOL} relative (max {rel})")
+            rec["f32_max_rel"] = max(rec["f32_max_rel"], rel)
+    share_ok = op == "add_rms_norm" or rec["bf16_differ"] <= NV_DIFFER_SHARE * max(1, rec["bf16_elements"])
+    check(rec["max_bf16_steps"] <= 1.0 and rec["untied"] == 0 and share_ok,
+          f"{case}: {rec['bf16_differ']} of {rec['bf16_elements']} bf16 elements differ, by up to "
+          f"{rec['max_bf16_steps']} steps, {rec['untied']} of them off a rounding tie")
+    return rec
+
+
+def nv_graph_us(fn, arg_sets, calls=NV_TIMED_CALLS):
+    """Device microseconds per call of ``fn(*args)``: ``calls`` calls cycling
+    through ``arg_sets`` (cold inputs), captured as one CUDA graph as the
+    forward runs them (no host launch time), the second replay timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in arg_sets[:2]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    sync()
+    return 1e3 * start.elapsed_time(end) / calls
+
+
+def nv_kernels_in_replay(graph):
+    """(kernels one replay launches, launches of each layer kernel), from a
+    ``torch.profiler`` trace of the replay. A first replay, traced and
+    dropped, starts the tracer: a replay traced from a cold start can lose
+    its first kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            graph.replay()
+            sync()
+            prof.step()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(names), {op: sum(kernel in n for n in names) for op, kernel in NV_KERNELS.items()}
+
+
+def nv_forward_inputs(b, l, device):
+    g = torch.Generator(device).manual_seed(b * 1000 + l)
+    lengths = torch.tensor([l - (i % 5) for i in range(b)], device=device)
+    ids = torch.randint(3, 32000, (b, l), generator=g, device=device) * (
+        torch.arange(l, device=device) < lengths[:, None])
+    return ids, lengths, torch.full((b,), 12, device=device).minimum(lengths)
+
+
+def nv_forward(enc, b, l, replays=20):
+    """One forward of [b, l] through the kernels: its launches eager (reset
+    just before), captured (``fused_launches``) and replayed (device trace);
+    against the same forward captured through the plain versions: unit rows
+    within ``NV_FORWARD_L2``, CUDA-event ms per replay in turns."""
+    from unittest import mock
+
+    from hipporag_tpu_torch.embedding import nvembed_encoder as nv
+
+    layers = len(enc.layers)
+    want = {op: (2 if op == "add_rms_norm" else 1) * layers for op in NV_OPS}
+    inputs = nv_forward_inputs(b, l, enc.device)
+    with torch.inference_mode():
+        sync()
+        for counter in nv.LAUNCHES.values():
+            counter.reset()
+        nv._forward(enc, *inputs)
+        sync()
+        eager = {op: nv.LAUNCHES[op].count for op in NV_OPS}
+        check(eager == want, f"{b}x{l}: an eager forward launched {eager}; want {want}")
+        rows = enc.encode_forward(*inputs)
+        check(enc.fused_launches((b, l)) == 6 * layers,
+              f"{b}x{l}: the captured forward holds {enc.fused_launches((b, l))} layer kernels; want {6 * layers}")
+        kernel_graph = enc._graphs[(b, l)][0]
+        with mock.patch.multiple(nv, **{op: getattr(nv, op + "_plain") for op in NV_OPS}):
+            plain = enc._capture(*inputs)  # (graph, its static inputs, its output, 0): kept whole while it replays
+        plain_graph = plain[0]
+        plain_graph.replay()
+        plain_rows = plain[2].clone()
+    total, replayed = nv_kernels_in_replay(kernel_graph)
+    check(replayed == want, f"{b}x{l}: a replay launched {replayed} layer kernels; want {want}")
+    plain_total, _ = nv_kernels_in_replay(plain_graph)
+    err = torch.linalg.vector_norm(rows - plain_rows, dim=-1).max().item()
+    check(err <= NV_FORWARD_L2, f"{b}x{l}: unit rows {err} in L2 from the plain forward's; limit {NV_FORWARD_L2}")
+    times = {"kernels": [], "plain": []}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(replays):
+        for name in (("kernels", "plain") if i % 2 == 0 else ("plain", "kernels")):
+            graph = kernel_graph if name == "kernels" else plain_graph
+            graph.replay()
+            sync()
+            start.record()
+            graph.replay()
+            end.record()
+            sync()
+            times[name].append(start.elapsed_time(end))
+    del plain, plain_graph
+    return {"forward_ms": float(np.median(times["kernels"])), "plain_forward_ms": float(np.median(times["plain"])),
+            "kernels_per_forward": total, "plain_kernels_per_forward": plain_total, "rows_l2_vs_plain": err,
+            "launches_eager": eager, "launches_replayed": replayed, "launches_captured": enc.fused_launches((b, l))}
+
+
+def phase11_nvembed(device):
+    """NV-Embed-v2's layer kernels on the card: each held to its plain
+    version at the cell's forwards and published widths and at a ragged
+    shape, in bfloat16 and float32; each timed against its plain version
+    and its least time by bytes; the published model's forward through the
+    kernels against the forward through the plain versions; and the
+    ``retrieve/embed`` span's ``fused_kernels`` against its ``forwards``.
+    Returns (record, the five kernels' entries of the ``kernels`` line)."""
+    from hipporag_tpu_torch.embedding import nvembed_encoder as nv
+
+    start = time.perf_counter()
+    _kernels.load("nvembed_layer")
+    build_s, build_log = _kernels.build_info.get("nvembed_layer", (0.0, ""))
+    log(f"phase 11: kernel build: nvembed_layer.cu {build_s:.1f} s (load {time.perf_counter() - start:.1f} s)")
+    for line in build_log.strip().splitlines():
+        log(f"  nvcc: {line}")
+    gen = torch.Generator(device).manual_seed(11)
+    rec = {"build_s": build_s, "checks": {}, "ops": {}, "forwards": {}}
+    b, l, ragged = NV_RAGGED
+    for shape, widths in [(s, NV_WIDTHS) for s in NV_SHAPES] + [((b, l), ragged)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            for case, (op, draw, _bytes) in nv_op_cases(*shape, widths, device, dtype, gen).items():
+                tag = f"{case}.{shape[0]}x{shape[1]}.{str(dtype)[6:]}{'.ragged' if widths is ragged else ''}"
+                rec["checks"][tag] = nv_held_to_plain(tag, op, draw())
+    log("phase 11: kernels against plain versions: " + json.dumps(rec["checks"]))
+    for b, l in NV_SHAPES:
+        for case, (op, draw, nbytes) in nv_op_cases(b, l, NV_WIDTHS, device, torch.bfloat16, gen).items():
+            arg_sets = [draw() for _ in range(max(2, -(-NV_COLD_BYTES // nbytes)))]
+            least = 1e6 * nbytes / HBM_BYTES_PER_S
+            kernel_us = nv_graph_us(getattr(nv, op), arg_sets)
+            rec["ops"][f"{case}.{b}x{l}"] = {
+                "us": kernel_us, "plain_us": nv_graph_us(getattr(nv, op + "_plain"), arg_sets), "bound_us": least,
+                "bytes": nbytes, "roofline_pct": 100.0 * least / kernel_us}
+            del arg_sets
+            torch.cuda.empty_cache()
+    log("phase 11: kernel and plain times: " + json.dumps(rec["ops"]))
+    t0 = time.perf_counter()
+    cfg = BaseConfig(embedding_model_name=nv.ROUTE, embedding_model_dtype="bfloat16", embedding_batch_size=16)
+    model = nv.NVEmbedV2DeviceEmbeddingModel(cfg, device)
+    log(f"phase 11: the published model drawn in {time.perf_counter() - t0:.1f} s")
+    for b, l in NV_SHAPES:
+        rec["forwards"][f"{b}x{l}"] = nv_forward(model.encoder, b, l)
+        log(f"phase 11 forward {b}x{l}: " + json.dumps(rec["forwards"][f"{b}x{l}"]))
+    texts = [" ".join(f"w{i}x{j}" for j in range(12 + i % 5)) for i in range(40)]
+    with recording() as rec_spans:
+        with span("retrieve/embed"):
+            model.batch_encode(texts, instruction="Given a question, retrieve passages", norm=True)
+    (embed,) = [s for s in rec_spans.spans() if s.name == "retrieve/embed"]
+    layers = len(model.encoder.layers)
+    check(embed.attrs["fused_kernels"] == 6 * layers * embed.attrs["forwards"],
+          f"retrieve/embed: fused_kernels {embed.attrs['fused_kernels']} over {embed.attrs['forwards']} forwards")
+    rec["retrieve_embed"] = {k: embed.attrs[k] for k in ("forwards", "fused_kernels")}
+    del model
+    torch.cuda.empty_cache()
+    entries = []
+    for op in NV_OPS:
+        entry = {"name": op, "route": "cuda", "source": "hipporag_tpu_torch/csrc/nvembed_layer.cu",
+                 "replaces": "none: the JAX package has no NV-Embed-v2",
+                 "launches_by_path": {
+                     **{f"forward_{s}_{how}": f[f"launches_{how}"][op]
+                        for s, f in rec["forwards"].items() for how in ("eager", "replayed")},
+                     "retrieve_embed_all_kernels": rec["retrieve_embed"]}}
+        for b, l in NV_SHAPES:
+            t = rec["ops"][f"{op}.{b}x{l}"]
+            suffix = "" if (b, l) == NV_SHAPES[-1] else f"_{b}x{l}"
+            entry.update({f"ms{suffix}": t["us"] / 1e3, f"plain_ms{suffix}": t["plain_us"] / 1e3,
+                          f"bound_ms{suffix}": t["bound_us"] / 1e3, f"bound_by{suffix}": "bytes"})
+        if op == "add_rms_norm":
+            t = rec["ops"][f"add_rms_norm.first_layer.{NV_SHAPES[-1][0]}x{NV_SHAPES[-1][1]}"]
+            entry.update({"ms_first_layer": t["us"] / 1e3, "plain_ms_first_layer": t["plain_us"] / 1e3,
+                          "bound_ms_first_layer": t["bound_us"] / 1e3})
+        entry["max_bf16_steps"] = max(c["max_bf16_steps"] for t, c in rec["checks"].items() if t.startswith(op + "."))
+        entry["f32_max_rel"] = max(c["f32_max_rel"] for t, c in rec["checks"].items() if t.startswith(op + "."))
+        entries.append(entry)
+    return rec, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2554,7 +2864,12 @@ def main() -> int:
     log(f"phase 10 summary on {smi}: " + json.dumps({
         "wall_s": time.perf_counter() - t0,
         **{tag: {"plan": rec["plan"], "timing_b128": rec["timing_b128"]} for tag, rec in p10.items()}}))
-    log(f"chip_smoke: phases 1-10 passed in {time.perf_counter() - run_start:.1f} s")
+    t0 = time.perf_counter()
+    p11, nv_kernels = phase11_nvembed(device)
+    log(f"phase 11 summary on {smi}: " + json.dumps({
+        "wall_s": time.perf_counter() - t0, "build_s": p11["build_s"], "forwards": p11["forwards"],
+        "retrieve_embed": p11["retrieve_embed"]}))
+    log(f"chip_smoke: phases 1-11 passed in {time.perf_counter() - run_start:.1f} s")
 
     f32, bf16 = big["f32"], big["bf16"]
     kernels = [{
@@ -2597,7 +2912,7 @@ def main() -> int:
         "replaces": "none: the JAX package's ELL step is XLA (hipporag_tpu/ops/pagerank.py _spmv_ell)",
         "launches_by_path": K2_PATHS,
         **{f"{tag}_b128": rec["timing_b128"] for tag, rec in p10.items()},
-    }]
+    }, *nv_kernels]
     stray = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hipporag_tpu"))
     check(not stray, f"the port imported {stray[:5]}")
     log(json.dumps({"kernels": kernels}))

@@ -36,7 +36,13 @@ Precision: every product has ``compute_dtype`` operands and a float32
 result (:func:`encoder._operand` / :func:`encoder._matmul`: bf16 cuBLAS
 products with a float32 output on CUDA, bf16-rounded operands in float32 on
 the CPU). RMSNorm, LayerNorm, RoPE, softmax, the SiLU and GELU gates, the
-residual stream and the pooling are float32.
+residual stream and the pooling are float32. Between a decoder layer's six
+products the element-wise work (the residual adds, the norms, RoPE, the
+layouts of the grouped heads, the masked softmax, SwiGLU and the casts to
+the operand type) is five ops, six calls a layer (:func:`add_rms_norm`,
+:func:`rope_qkv`, :func:`masked_softmax`, :func:`ungroup_operand`,
+:func:`swiglu`): a hand-written kernel each on CUDA
+(``csrc/nvembed_layer.cu``), their plain torch compositions on the CPU.
 
 The latents' keys and values depend on the weights alone. They are
 computed once per set of weights, when the model is built (the published
@@ -52,6 +58,7 @@ Loading the published checkpoint goes through ``embedding/nvembed.py``.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 from typing import Dict, List, Optional, Union
 
@@ -60,6 +67,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops._kernels import LaunchCounter, load
 from ..utils.precision import full_f32
 from ..utils.timing import count
 from .base import BaseEmbeddingModel
@@ -193,26 +201,196 @@ def _ungroup(ctx: torch.Tensor, b: int, heads: int) -> torch.Tensor:
     return ctx.reshape(b, heads, -1, ctx.shape[-1])
 
 
-def _self_attention(x: torch.Tensor, layer: "DecoderLayer", enc: "NVEmbedV2Encoder", cos, sin,
-                    key_mask: torch.Tensor) -> torch.Tensor:
-    b, l, _ = x.shape
-    h, kv, hd, dtype = enc.heads, enc.kv_heads, enc.head_dim, enc.dtype
-    qkv = _dense(_rms_norm(x, layer.attn_norm, enc.eps), layer.qkv_w, dtype)
-    qk = _rope(qkv[..., :(h + kv) * hd].view(b, l, h + kv, hd), cos, sin)  # queries and keys at once
-    q = _group_queries(qk[:, :, :h].transpose(1, 2), kv)
-    k = qk[:, :, h:].transpose(1, 2).reshape(b * kv, l, hd)
-    v = qkv[..., (h + kv) * hd:].reshape(b, l, kv, hd).transpose(1, 2).reshape(b * kv, l, hd)
-    logits = _matmul(_operand(q, dtype), _operand(k, dtype).transpose(1, 2)).mul_(hd ** -0.5)
-    logits = logits.view(b, kv, -1, l).masked_fill_(~key_mask[:, None, None, :], -1e30)
-    probs = torch.softmax(logits, dim=-1).view(b * kv, -1, l)
-    ctx = _ungroup(_matmul(_operand(probs, dtype), _operand(v, dtype)), b, h)
-    return x + _dense(ctx.transpose(1, 2).reshape(b, l, h * hd), layer.o_w, dtype)
+# ----------------------------------------------------------------------
+# The element-wise chain between a decoder layer's products
+# ----------------------------------------------------------------------
+# Each op below runs its plain torch composition (``<op>_plain``, beside it)
+# on a CPU tensor and its kernel in csrc/nvembed_layer.cu on a CUDA tensor:
+# six launches per layer in place of some 30 torch ops. A CUDA operand the
+# kernel does not take raises. The ops write the next product's operand in
+# ``dtype`` (bfloat16 on CUDA, as :func:`encoder._operand` casts it; float32
+# holding the rounded values on the CPU).
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+_KERNEL_ARGS = {  # each takes the stream last
+    "add_rms_norm": [_P, _P, _P, _P, ctypes.c_int, _I, _I, _F],
+    "rope_qkv": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _I, _I, _I, _I, _I],
+    "masked_softmax": [_P, _P, _P, ctypes.c_int, _I, _I, _I, _F],
+    "ungroup_operand": [_P, _P, ctypes.c_int, _I, _I, _I, _I, _I],
+    "swiglu": [_P, _P, ctypes.c_int, _I, _I],
+}
+LAUNCHES = {name: LaunchCounter() for name in _KERNEL_ARGS}
 
 
-def _mlp(x: torch.Tensor, layer: "DecoderLayer", enc: "NVEmbedV2Encoder") -> torch.Tensor:
-    gate_up = _dense(_rms_norm(x, layer.mlp_norm, enc.eps), layer.gate_up_w, enc.dtype)
+def layer_kernel_launches() -> int:
+    """Launches of the five kernels so far, in this process."""
+    return sum(c.count for c in LAUNCHES.values())
+
+
+def _cuda_operands(name: str, dtype: torch.dtype, *tensors, ints=()) -> None:
+    """Raise unless every tensor is float32 (those in ``ints`` int64),
+    contiguous, 16-byte aligned and on one CUDA device, and ``dtype`` is an
+    operand type the kernels write."""
+    device = tensors[0].device
+    if device.type != "cuda" or any(t.device != device for t in (*tensors, *ints)):
+        raise ValueError(f"{name}: every operand must be on one CUDA device (or all on the CPU)")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: operands in {dtype}; the kernel writes bfloat16 or float32")
+    for t, want in [(t, torch.float32) for t in tensors] + [(t, torch.int64) for t in ints]:
+        if t.dtype != want or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: needs contiguous, 16-byte aligned {want} operands; got {t.dtype}, "
+                             f"shape {tuple(t.shape)}, strides {t.stride()}")
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    fn = getattr(load("nvembed_layer"), "nvembed_" + name)
+    if fn.argtypes is None:
+        fn.argtypes = _KERNEL_ARGS[name] + [_P]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):  # the kernel launches on the current device
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nvembed_layer {name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name].add()
+
+
+def add_rms_norm_plain(x: torch.Tensor, delta: Optional[torch.Tensor], scale: torch.Tensor, eps: float,
+                       dtype: torch.dtype) -> torch.Tensor:
+    if delta is not None:
+        x.add_(delta)
+    return _operand(_rms_norm(x, scale, eps), dtype)
+
+
+def add_rms_norm(x: torch.Tensor, delta: Optional[torch.Tensor], scale: torch.Tensor, eps: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """``x += delta`` in place (the residual, float32 [M, D]; nothing added
+    when ``delta`` is None), then the next product's operand
+    ``rms_norm(x) * scale`` in ``dtype``."""
+    if x.device.type == "cpu":
+        return add_rms_norm_plain(x, delta, scale, eps, dtype)
+    _cuda_operands("add_rms_norm", dtype, x, scale, *([] if delta is None else [delta]))
+    if x.dim() != 2 or tuple(scale.shape) != (x.shape[1],) or (delta is not None and delta.shape != x.shape):
+        raise ValueError(f"add_rms_norm: x {tuple(x.shape)}, scale {tuple(scale.shape)}, delta "
+                         f"{None if delta is None else tuple(delta.shape)}; want [M, D], [D], [M, D]")
+    y = torch.empty(x.shape, dtype=dtype, device=x.device)
+    _launch("add_rms_norm", x.device, x.data_ptr(), None if delta is None else delta.data_ptr(), scale.data_ptr(),
+            y.data_ptr(), int(dtype == torch.bfloat16), x.shape[0], x.shape[1], eps)
+    return y
+
+
+def rope_qkv_plain(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, heads: int, kv_heads: int,
+                   dtype: torch.dtype) -> tuple:
+    b, l, _ = qkv.shape
+    hd = cos.shape[-1]
+    qk = _rope(qkv[..., :(heads + kv_heads) * hd].view(b, l, heads + kv_heads, hd), cos, sin)
+    q = _group_queries(qk[:, :, :heads].transpose(1, 2), kv_heads)
+    k = qk[:, :, heads:].transpose(1, 2).reshape(b * kv_heads, l, hd)
+    v = qkv[..., (heads + kv_heads) * hd:].reshape(b, l, kv_heads, hd).transpose(1, 2).reshape(b * kv_heads, l, hd)
+    return _operand(q, dtype), _operand(k, dtype), _operand(v, dtype)
+
+
+def rope_qkv(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, heads: int, kv_heads: int,
+             dtype: torch.dtype) -> tuple:
+    """The qkv product's output [B, L, (heads + 2 kv_heads) * hd] (float32)
+    -> operands (q [B * kv_heads, rep * L, hd] as :func:`_group_queries`
+    lays it out, k and v [B * kv_heads, L, hd]), RoPE on q and k
+    (:func:`_rope`; ``cos``, ``sin`` [L, 1, hd])."""
+    if qkv.device.type == "cpu":
+        return rope_qkv_plain(qkv, cos, sin, heads, kv_heads, dtype)
+    b, l, width = qkv.shape
+    hd = cos.shape[-1]
+    _cuda_operands("rope_qkv", dtype, qkv, cos, sin)
+    if (hd % 2 or heads % kv_heads or width != (heads + 2 * kv_heads) * hd
+            or tuple(cos.shape) != (l, 1, hd) or sin.shape != cos.shape):
+        raise ValueError(f"rope_qkv: qkv {tuple(qkv.shape)}, cos {tuple(cos.shape)}, sin {tuple(sin.shape)} "
+                         f"for {heads} heads over {kv_heads}; want an even head_dim")
+    q = torch.empty(b * kv_heads, (heads // kv_heads) * l, hd, dtype=dtype, device=qkv.device)
+    k = torch.empty(b * kv_heads, l, hd, dtype=dtype, device=qkv.device)
+    v = torch.empty_like(k)
+    _launch("rope_qkv", qkv.device, qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), int(dtype == torch.bfloat16), b, l, heads, kv_heads, hd)
+    return q, k, v
+
+
+def masked_softmax_plain(logits: torch.Tensor, lengths: torch.Tensor, scale: float,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """Scales ``logits`` in place."""
+    b, l = lengths.shape[0], logits.shape[-1]
+    key_mask = torch.arange(l, device=logits.device)[None, :] < lengths[:, None]
+    masked = logits.mul_(scale).view(b, -1, l).masked_fill_(~key_mask[:, None, :], -1e30)
+    return _operand(torch.softmax(masked, dim=-1).view(logits.shape), dtype)
+
+
+def masked_softmax(logits: torch.Tensor, lengths: torch.Tensor, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """QK^T logits [B * kv, R, L] (float32, rows of text b = row // kv) ->
+    probabilities in ``dtype``: ``softmax(logits * scale)`` over keys, keys
+    at positions >= ``lengths[b]`` at -1e30."""
+    if logits.device.type == "cpu":
+        return masked_softmax_plain(logits, lengths, scale, dtype)
+    b, l = lengths.shape[0], logits.shape[-1]
+    _cuda_operands("masked_softmax", dtype, logits, ints=(lengths,))
+    if logits.dim() != 3 or lengths.dim() != 1 or b == 0 or logits.shape[0] % b:
+        raise ValueError(f"masked_softmax: logits {tuple(logits.shape)}, lengths {tuple(lengths.shape)}; "
+                         "want [B * kv, R, L] and [B]")
+    probs = torch.empty(logits.shape, dtype=dtype, device=logits.device)
+    _launch("masked_softmax", logits.device, logits.data_ptr(), lengths.data_ptr(), probs.data_ptr(),
+            int(dtype == torch.bfloat16), logits.numel() // l, logits.numel() // (b * l), l, scale)
+    return probs
+
+
+def ungroup_operand_plain(ctx: torch.Tensor, b: int, heads: int, dtype: torch.dtype) -> torch.Tensor:
+    return _operand(_ungroup(ctx, b, heads).transpose(1, 2).reshape(-1, heads * ctx.shape[-1]), dtype)
+
+
+def ungroup_operand(ctx: torch.Tensor, b: int, heads: int, dtype: torch.dtype) -> torch.Tensor:
+    """The PV output [B * kv, rep * L, hd] (float32, :func:`_group_queries`'
+    layout) -> the o product's operand [B * L, heads * hd] in ``dtype``."""
+    if ctx.device.type == "cpu":
+        return ungroup_operand_plain(ctx, b, heads, dtype)
+    hd = ctx.shape[-1]
+    _cuda_operands("ungroup_operand", dtype, ctx)
+    kv = ctx.shape[0] // b if b else 0
+    if ctx.dim() != 3 or hd % 2 or kv * b != ctx.shape[0] or kv == 0 or heads % kv or ctx.shape[1] % (heads // kv):
+        raise ValueError(f"ungroup_operand: ctx {tuple(ctx.shape)} for {b} texts of {heads} heads; "
+                         "want [B * kv, (heads / kv) * L, hd] with an even hd")
+    l = ctx.shape[1] // (heads // kv)
+    out = torch.empty(b * l, heads * hd, dtype=dtype, device=ctx.device)
+    _launch("ungroup_operand", ctx.device, ctx.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16), b, l,
+            heads, kv, hd)
+    return out
+
+
+def swiglu_plain(gate_up: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     gate, up = gate_up.chunk(2, dim=-1)
-    return x + _dense(F.silu(gate) * up, layer.down_w, enc.dtype)
+    return _operand(F.silu(gate) * up, dtype)
+
+
+def swiglu(gate_up: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The gate_up product's output [M, 2F] (float32) -> the down product's
+    operand ``silu(gate) * up`` [M, F] in ``dtype``."""
+    if gate_up.device.type == "cpu":
+        return swiglu_plain(gate_up, dtype)
+    _cuda_operands("swiglu", dtype, gate_up)
+    if gate_up.dim() != 2 or gate_up.shape[1] % 2:
+        raise ValueError(f"swiglu: gate_up {tuple(gate_up.shape)}; want [M, 2F]")
+    m, f = gate_up.shape[0], gate_up.shape[1] // 2
+    out = torch.empty(m, f, dtype=dtype, device=gate_up.device)
+    _launch("swiglu", gate_up.device, gate_up.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16), m, f)
+    return out
+
+
+def _self_attention(y: torch.Tensor, lengths: torch.Tensor, layer: "DecoderLayer", enc: "NVEmbedV2Encoder", cos,
+                    sin) -> torch.Tensor:
+    """The attention block's o product [B * L, D] (float32) from its normed operand ``y`` [B * L, D]."""
+    b = lengths.shape[0]
+    h, kv, hd, dtype = enc.heads, enc.kv_heads, enc.head_dim, enc.dtype
+    q, k, v = rope_qkv(_matmul(y, layer.qkv_w).view(b, y.shape[0] // b, -1), cos, sin, h, kv, dtype)
+    probs = masked_softmax(_matmul(q, k.transpose(1, 2)), lengths, hd ** -0.5, dtype)
+    return _matmul(ungroup_operand(_matmul(probs, v), b, h, dtype), layer.o_w)
+
+
+def _mlp(y: torch.Tensor, layer: "DecoderLayer", enc: "NVEmbedV2Encoder") -> torch.Tensor:
+    """The MLP block's down product [B * L, D] (float32) from its normed operand ``y``."""
+    return _matmul(swiglu(_matmul(y, layer.gate_up_w), enc.dtype), layer.down_w)
 
 
 def _latent_attention(x: torch.Tensor, enc: "NVEmbedV2Encoder") -> torch.Tensor:
@@ -236,17 +414,22 @@ def _geglu(x: torch.Tensor, enc: "NVEmbedV2Encoder") -> torch.Tensor:
 def _forward(enc: "NVEmbedV2Encoder", ids: torch.Tensor, lengths: torch.Tensor,
              pool_from: torch.Tensor) -> torch.Tensor:
     """Right-padded ids [B, L], real lengths [B] and the first pooled
-    position [B] -> unit rows [B, D] (float32)."""
-    l = ids.shape[1]
-    pos = torch.arange(l, device=ids.device)
-    key_mask = pos[None, :] < lengths[:, None]
+    position [B] -> unit rows [B, D] (float32). The residual ``x`` [B * L,
+    D] takes each block's product in the next block's :func:`add_rms_norm`."""
+    b, l = ids.shape
     cos, sin = enc.rope_tables(l)
-    x = F.embedding(ids, enc.embed).float()
+    x = F.embedding(ids, enc.embed).float().view(b * l, -1)
+    delta = None
     for layer in enc.layers:
-        x = _mlp(_self_attention(x, layer, enc, cos, sin, key_mask), layer, enc)
-    x = _rms_norm(x, enc.norm, enc.eps)
+        attn = _self_attention(add_rms_norm(x, delta, layer.attn_norm, enc.eps, enc.dtype), lengths, layer, enc,
+                               cos, sin)
+        delta = _mlp(add_rms_norm(x, attn, layer.mlp_norm, enc.eps, enc.dtype), layer, enc)
+    if delta is not None:
+        x.add_(delta)
+    x = _rms_norm(x.view(b, l, -1), enc.norm, enc.eps)
     x = _geglu(_latent_attention(x, enc), enc)
-    pool = (key_mask & (pos[None, :] >= pool_from[:, None]))[..., None].float()
+    pos = torch.arange(l, device=ids.device)
+    pool = ((pos[None, :] < lengths[:, None]) & (pos[None, :] >= pool_from[:, None]))[..., None].float()
     pooled = (x * pool).sum(1) / pool.sum(1).clamp_min(1.0)
     return pooled / torch.linalg.vector_norm(pooled, dim=-1, keepdim=True).clamp_min(1e-12)
 
@@ -332,23 +515,30 @@ class NVEmbedV2Encoder(nn.Module):
     def encode_forward(self, ids: torch.Tensor, lengths: torch.Tensor, pool_from: torch.Tensor) -> torch.Tensor:
         """Unit rows [B, D] (float32) of right-padded ``ids`` [B, L]. On
         CUDA the forward of each shape [B, L] is captured once as a CUDA
-        graph and replayed: a forward launches some 1,300 kernels, which
+        graph and replayed: a forward launches some 430-460 kernels, which
         the host could not launch as fast as the card runs them."""
         if not ids.is_cuda:
             return _forward(self, ids, lengths, pool_from)
         graph = self._graphs.get(tuple(ids.shape))
         if graph is None:
             graph = self._graphs[tuple(ids.shape)] = self._capture(ids, lengths, pool_from)
-        graph, inputs, out = graph
+        graph, inputs, out, _launches = graph
         for static, given in zip(inputs, (ids, lengths, pool_from)):
             static.copy_(given)
         graph.replay()
         return out.clone()  # the graph's next replay overwrites ``out``
 
+    def fused_launches(self, shape: tuple) -> int:
+        """Launches of the layer kernels (csrc/nvembed_layer.cu) in one
+        replay of the forward of ``shape`` [B, L], as counted when it was
+        captured; 0 off CUDA, where the forward runs the plain torch ops."""
+        graph = self._graphs.get(tuple(shape))
+        return graph[3] if graph is not None else 0
+
     def _capture(self, *inputs) -> tuple:
-        """(graph, its input tensors, its output) of one forward of the
-        inputs' shapes. The graphs share one memory pool: they replay one
-        at a time on one stream."""
+        """(graph, its input tensors, its output, the layer kernels'
+        launches it holds) of one forward of the inputs' shapes. The graphs
+        share one memory pool: they replay one at a time on one stream."""
         inputs = tuple(t.clone() for t in inputs)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -358,9 +548,10 @@ class NVEmbedV2Encoder(nn.Module):
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        before = layer_kernel_launches()
         with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             out = _forward(self, *inputs)
-        return graph, inputs, out
+        return graph, inputs, out, layer_kernel_launches() - before
 
 
 # ----------------------------------------------------------------------
@@ -405,8 +596,9 @@ class NVEmbedV2DeviceEmbeddingModel(BaseEmbeddingModel):
     else drawn on the device from the name's seed. A batch is padded to its
     longest text. Each forward adds ``texts``, ``tokens`` (real positions,
     BOS and EOS included), ``pooled``, ``padded_tokens`` (positions
-    computed) and ``forwards`` to the open span (``retrieve/embed`` on the
-    query path)."""
+    computed), ``forwards`` and ``fused_kernels`` (the layer kernels' launches
+    the forward replayed; 0 on the CPU) to the open span (``retrieve/embed``
+    on the query path)."""
 
     def __init__(self, global_config=None, device: Union[str, torch.device] = "cuda", params: Optional[Dict] = None):
         super().__init__(global_config)
@@ -453,4 +645,5 @@ class NVEmbedV2DeviceEmbeddingModel(BaseEmbeddingModel):
         dev = self.encoder.device
         out = self.encoder.encode_forward(torch.from_numpy(ids).to(dev), torch.from_numpy(lengths).to(dev),
                                           torch.from_numpy(pool_from).to(dev))
+        count("fused_kernels", self.encoder.fused_launches(ids.shape))
         return _HostArray(out)

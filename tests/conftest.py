@@ -21,6 +21,10 @@ jax.config.update("jax_num_cpu_devices", 8)
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "chip: needs a CUDA device (skips without one)")
+
+
 @pytest.fixture()
 def tmp_save_dir(tmp_path):
     return str(tmp_path / "outputs")

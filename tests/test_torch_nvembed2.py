@@ -152,7 +152,7 @@ def test_the_counters_on_the_open_span():
     (embed,) = [s for s in rec.spans() if s.name == "retrieve/embed"]
     assert embed.attrs == {
         "texts": 4, "forwards": 2, "tokens": sum(lengths), "pooled": sum(n - prefix for n in lengths),
-        "padded_tokens": 3 * max(lengths[:3]) + lengths[3],
+        "padded_tokens": 3 * max(lengths[:3]) + lengths[3], "fused_kernels": 0,
     }
 
 
