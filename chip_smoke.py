@@ -127,6 +127,19 @@ the run with a non-zero exit:
    its unit rows and time against the forward captured through the plain
    versions; and the ``retrieve/embed`` span's ``fused_kernels`` against
    its ``forwards``.
+12. GritLM-8x7B's mixture-of-experts kernels (``ops/moe.py``, Triton:
+   ``moe_route``, ``moe_gate_up``, ``moe_down``, ``moe_combine``): each
+   against its plain version on the same inputs, eager and inside a traced
+   CUDA-graph replay, at the ``gritlm-8x7b-musique.batch`` cell's forwards
+   (16 x 22, 16 x 18) and published widths and at a ragged shape whose
+   routing leaves one expert with no rows (the same expert choices, rows and
+   offsets; gates and products within stated bounds); each timed against
+   its plain version and its least time; the cell's 16 layers' forward
+   (weights drawn on the card): its launches of each MoE and layer kernel
+   eager, as captured and in a traced replay, its unit rows and time
+   against the forward through the plain versions, and its rows and expert
+   choices against the float32 reference's; and the ``retrieve/embed``
+   span's ``moe_kernels``, ``routed`` and ``expert_rows_max``.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Neither JAX nor ``hipporag_tpu`` may be
@@ -147,6 +160,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "build", "triton"))
 sys.path.insert(0, ROOT)
 
 from hipporag_tpu_torch import (  # noqa: E402
@@ -315,6 +329,31 @@ NV_DIFFER_SHARE, NV_F32_RTOL, NV_TIE_RTOL = 1e-5, 1e-6, 2.0**-20
 NV_FORWARD_L2 = 0.04
 NV_COLD_BYTES = 128 << 20  # inputs cycled per timing: over twice the 50 MB L2
 NV_TIMED_CALLS = 200
+# phase 12: GritLM-8x7B's mixture-of-experts kernels (ops/moe.py) at the
+# gritlm-8x7b-musique.batch cell's forwards (16 texts of 22 or 18 tokens) and
+# published widths, and at a ragged shape whose routing leaves one expert
+# with no rows
+MOE_OPS = ("moe_route", "moe_gate_up", "moe_down", "moe_combine")
+MOE_SHAPES = ((16, 22), (16, 18))
+MOE_RAGGED, MOE_EMPTY_EXPERT = (3, 37), 5
+MOE_WIDTHS = dict(d=4096, f=14336, experts=8, top_k=2)
+MOE_SEED = 2**31 + 12
+# kernel against plain version on the same inputs: the same expert choices,
+# rows and offsets; the gates within MOE_GATE_ATOL (the kernel's exp is
+# Triton's, within a few float32 steps of torch's, on gates of at most 1);
+# the grouped products, which sum the same bf16 products in float32 in
+# another order than cuBLAS (4,096 or 14,336 terms, whose magnitudes add to
+# far more than the sum: the down product read 1.3e-5), and the combine
+# within MOE_PRODUCT_RTOL of their largest magnitude
+MOE_GATE_ATOL, MOE_PRODUCT_RTOL = 2e-6, 1e-4
+# the 16 layers' forward replayed against the same forward eager (the same
+# kernels: MOE_REPLAY_L2), and against the forward through the plain
+# versions held to the kernels' expert choices: a product's other sum order
+# moves the bf16 operands in their last bits, which 16 layers carry on
+# (NV-Embed-v2's 32 read 0.024-0.033). Left to route itself, the plain
+# forward flips an expert choice wherever such a difference meets a near tie,
+# and a flipped token moves its whole text: that distance is reported.
+MOE_REPLAY_L2, MOE_FORWARD_L2 = 1e-6, 0.05
 
 
 def scan_delta(q, keys):
@@ -2744,6 +2783,345 @@ def phase11_nvembed(device):
     return rec, entries
 
 
+# ----------------------------------------------------------------------
+# Phase 12: GritLM-8x7B's mixture-of-experts kernels (ops/moe.py)
+# ----------------------------------------------------------------------
+def moe_inputs(b, l, device, gen, empty=None):
+    """(normed operand y [b * l, D] bf16, lengths [b], router logits [b * l,
+    E] float32) of a forward of ``b`` texts padded to ``l``; with ``empty``,
+    that expert's logits are pushed far down, so that no token chooses it."""
+    d, n_exp = MOE_WIDTHS["d"], MOE_WIDTHS["experts"]
+    lengths = torch.tensor([max(1, l - (i % 5)) for i in range(b)], device=device)
+    y = torch.randn(b * l, d, generator=gen, device=device).to(torch.bfloat16)
+    router = (0.02 * torch.randn(d, n_exp, generator=gen, device=device)).to(torch.bfloat16)
+    logits = torch.mm(y, router, out_dtype=torch.float32)
+    if empty is not None:
+        logits[:, empty] = -1e4
+    return y, lengths, logits
+
+
+def moe_block(ops, y, lengths, logits, gate, up, down, stats=None):
+    """The MoE block through ``ops`` (``moe`` or its plain versions):
+    (routing, gate_up rows, down rows, output)."""
+    from hipporag_tpu_torch.embedding import nvembed_encoder as nv
+
+    r = ops["moe_route"](logits, lengths, MOE_WIDTHS["top_k"], stats)
+    gate_up = ops["moe_gate_up"](y, gate, up, r)
+    rows = ops["moe_down"](nv.swiglu(gate_up, y.dtype), down, r)
+    return r, gate_up, rows, ops["moe_combine"](rows, r)
+
+
+def moe_held(tag, got, want, got_stats, want_stats):
+    """Hold the kernels' block (``got``) to the plain versions' (``want``)
+    on the same inputs: the same choices, rows, offsets and counters, the
+    gates within ``MOE_GATE_ATOL``, each product's routed rows and the
+    output within ``MOE_PRODUCT_RTOL`` of their largest magnitude."""
+    (gr, g_gu, g_rows, g_out), (wr, w_gu, w_rows, w_out) = got, want
+    routed = int(wr.offsets[-1])
+    same = {"experts": torch.equal(gr.experts, wr.experts), "slots": torch.equal(gr.slots, wr.slots),
+            "offsets": torch.equal(gr.offsets, wr.offsets),
+            "tokens": torch.equal(gr.tokens[:routed], wr.tokens[:routed]),
+            "stats": torch.equal(got_stats, want_stats)}
+    check(all(same.values()), f"{tag}: the routing differs from the plain version's: {same}")
+    rec = {"routed": routed, "empty_experts": int((wr.offsets[1:] == wr.offsets[:-1]).sum()),
+           "gate_max_abs": float((gr.gates - wr.gates).abs().max())}
+    check(rec["gate_max_abs"] <= MOE_GATE_ATOL, f"{tag}: gates {rec['gate_max_abs']} from the plain version's")
+    for name, g, w in (("gate_up", g_gu[:routed], w_gu[:routed]), ("down", g_rows[:routed], w_rows[:routed]),
+                       ("combine", g_out, w_out)):
+        rec[f"{name}_max_rel"] = float((g - w).abs().max()) / float(w.abs().max())
+    check(all(rec[f"{name}_max_rel"] <= MOE_PRODUCT_RTOL for name in ("gate_up", "down", "combine")),
+          f"{tag}: the products differ from the plain versions' beyond {MOE_PRODUCT_RTOL}: {rec}")
+    return rec
+
+
+def moe_kernels_in_replay(graph, lead=4):
+    """(kernels one replay launches, launches of each MoE and layer kernel),
+    from a ``torch.profiler`` trace of the replay. Two replays, traced and
+    dropped, start the tracer, and ``lead`` small kernels open each traced
+    step: a tracer started cold can lose a step's first kernels (it lost a
+    replay's first two once, with one replay to warm it)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    filler = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=2, active=1, repeat=1)) as prof:
+        for _ in range(3):
+            for _ in range(lead):
+                filler.add_(1)
+            graph.replay()
+            sync()
+            prof.step()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    counts = {op: sum(n.startswith(op + "_kernel") for n in names) for op in MOE_OPS}
+    counts.update({op: sum(kernel in n for n in names) for op, kernel in NV_KERNELS.items()})
+    return len(names) - lead, counts
+
+
+def moe_work(op, b, l, routed, tokens):
+    """(flops, bytes) an op needs at B = ``b``, L = ``l`` with ``routed``
+    pairs of ``tokens`` real tokens: each input byte read once, each output
+    byte written once; the products read every expert's weights once."""
+    d, f, n_exp, k = MOE_WIDTHS["d"], MOE_WIDTHS["f"], MOE_WIDTHS["experts"], MOE_WIDTHS["top_k"]
+    t = b * l
+    return {"moe_route": (0.0, 4 * t * n_exp + 8 * b + 4 * (3 * t * k + routed + n_exp + 1)),
+            "moe_gate_up": (4.0 * routed * d * f, 2 * n_exp * d * 2 * f + 2 * tokens * d + 4 * routed * 2 * f),
+            "moe_down": (2.0 * routed * f * d, 2 * n_exp * f * d + 2 * routed * f + 4 * routed * d),
+            "moe_combine": (2.0 * routed * d, 4 * routed * d + 4 * t * d + 8 * t * k)}[op]
+
+
+def moe_timed(ops, plain_ops, args, b, l, r):
+    """Each op's device microseconds inside a CUDA graph (``nv_graph_us``),
+    its plain version's eager (CUDA events; the plain products read the
+    offsets on the host), and its least time."""
+    from hipporag_tpu_torch.embedding import nvembed_encoder as nv
+
+    y, lengths, logits, gate, up, down = args
+    routed = int(r.offsets[-1])
+    h = nv.swiglu(ops["moe_gate_up"](y, gate, up, r), y.dtype)
+    rows = ops["moe_down"](h, down, r)
+    calls = {"moe_route": lambda o: o(logits, lengths, MOE_WIDTHS["top_k"]),
+             "moe_gate_up": lambda o: o(y, gate, up, r), "moe_down": lambda o: o(h, down, r),
+             "moe_combine": lambda o: o(rows, r)}
+    out = {}
+    for op in MOE_OPS:
+        flops, nbytes = moe_work(op, b, l, routed, routed // MOE_WIDTHS["top_k"])
+        least_us = 1e6 * max(flops / BF16_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S)
+        big = op in ("moe_gate_up", "moe_down")
+        if big:  # the weights are 0.9 to 1.9 GB, past the 50 MB L2
+            us = nv_graph_us(lambda fn=ops[op], call=calls[op]: call(fn), [()], calls=20)
+        elif op == "moe_route":
+            sets = [(logits.clone(),) for _ in range(8)]
+            us = nv_graph_us(lambda x: ops[op](x, lengths, MOE_WIDTHS["top_k"]), sets)
+        else:  # inputs cycled over twice the L2
+            sets = [(rows.clone(),) for _ in range(max(2, -(-NV_COLD_BYTES // rows.numel() // 4)))]
+            us = nv_graph_us(lambda x: ops[op](x, r), sets)
+        out[op] = {"us": us, "plain_eager_us": 1e3 * time_ms(lambda: calls[op](plain_ops[op]), reps=5 if big else 20),
+                   "bound_us": least_us, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_PEAK_FLOPS
+                   else "flops", "roofline_pct": 100.0 * least_us / us}
+    return out
+
+
+def moe_forward(model, b, l, replays=10):
+    """One forward of [b, l] of the cell's layers through the kernels: its
+    MoE and layer kernels' launches eager (reset just before), captured and
+    in a traced replay; the replay's unit rows against the eager forward's
+    (``MOE_REPLAY_L2``) and against the same forward through the plain
+    versions held to the kernels' expert choices (``MOE_FORWARD_L2``); the
+    plain forward left to route itself: its rows' distance and the share of
+    expert choices that differ, layer by layer; the replay's and the plain
+    forward's CUDA-event ms."""
+    from unittest import mock
+
+    from hipporag_tpu_torch.embedding import nvembed_encoder as nv
+    from hipporag_tpu_torch.ops import moe
+
+    enc = model.encoder
+    layers = len(enc.layers)
+    inputs = nv_forward_inputs(b, l, enc.device)
+    want = {**{op: layers for op in MOE_OPS}, **{op: (2 if op == "add_rms_norm" else 1) * layers for op in NV_OPS}}
+    route = moe.moe_route
+    chosen, forced = [], []
+
+    def recorded(logits, lengths, top_k, stats=None):
+        chosen.append(route(logits, lengths, top_k, stats))
+        return chosen[-1]
+
+    def held(logits, lengths, top_k, stats=None):
+        forced.append(moe.moe_route_plain(logits, lengths, top_k))
+        return chosen[len(forced) - 1]
+
+    plain_ops = {**{op: getattr(nv, op + "_plain") for op in NV_OPS}}
+    with torch.inference_mode():
+        sync()
+        for counter in (*moe.LAUNCHES.values(), *nv.LAUNCHES.values()):
+            counter.reset()
+        with mock.patch.object(moe, "moe_route", recorded):
+            eager_rows = enc.run(*inputs)
+        sync()
+        eager = {**{op: moe.LAUNCHES[op].count for op in MOE_OPS}, **{op: nv.LAUNCHES[op].count for op in NV_OPS}}
+        check(eager == want, f"{b}x{l}: an eager forward launched {eager}; want {want}")
+        rows = enc.encode_forward(*inputs)
+        captured = enc.launches((b, l))
+        check(captured == {"fused_kernels": 6 * layers, "moe_kernels": 4 * layers},
+              f"{b}x{l}: the captured forward holds {captured}")
+        graph = enc._graphs[(b, l)][0]
+        with mock.patch.multiple(nv, **plain_ops), mock.patch.multiple(
+                moe, **{op: getattr(moe, op + "_plain") for op in MOE_OPS}):
+            plain_rows = enc.run(*inputs)
+            plain_ms = time_ms(lambda: enc.run(*inputs), reps=3)
+            with mock.patch.object(moe, "moe_route", held):
+                forced_rows = enc.run(*inputs)
+    total, replayed = moe_kernels_in_replay(graph)
+    check(replayed == want, f"{b}x{l}: a replay launched {replayed}; want {want}")
+    real = (torch.arange(l, device=enc.device)[None, :] < inputs[1][:, None]).reshape(-1)
+    flips = [1.0 - float((k.experts[real].long()[:, :, None] == p.experts[real].long()[:, None, :]).any(-1)
+                         .float().mean()) for k, p in zip(chosen, forced)]
+    out = {"rows_l2_replay_vs_eager": torch.linalg.vector_norm(rows - eager_rows, dim=-1).max().item(),
+           "rows_l2_vs_plain_held_to_kernel_choices": torch.linalg.vector_norm(rows - forced_rows, dim=-1).max().item(),
+           "rows_l2_vs_plain_routing_itself": torch.linalg.vector_norm(rows - plain_rows, dim=-1).max().item(),
+           "choices_differing_from_plain_by_layer": flips}
+    check(out["rows_l2_replay_vs_eager"] <= MOE_REPLAY_L2 and out["rows_l2_vs_plain_held_to_kernel_choices"]
+          <= MOE_FORWARD_L2, f"{b}x{l}: unit rows apart: {out}")
+    times = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end))
+    return {"forward_ms": float(np.median(times)), "plain_eager_forward_ms": plain_ms, "kernels_per_forward": total,
+            **out, "launches_eager": eager, "launches_replayed": replayed, "launches_captured": captured}
+
+
+def moe_against_reference(model, weights, config, texts, instruction):
+    """The port's forward of ``texts`` (replayed, bf16 kernels) against the
+    plain float32 reference on the same weights: the rows' L2 distance and,
+    layer by layer, the share of real tokens' expert choices that differ
+    (an eager forward through the kernels records the port's)."""
+    from unittest import mock
+
+    from hipporag_tpu_torch.ops import moe
+    from perfbench.reference.encoders import gritlm as plain
+
+    port_choices, ref_choices = [], []
+    route = moe.moe_route
+
+    def recorded_route(logits, lengths, top_k, stats=None):
+        r = route(logits, lengths, top_k, stats)
+        port_choices.append(r.experts.clone())
+        return r
+
+    ref_moe = plain._moe
+
+    def recorded_moe(hs, p, cfg, mm):
+        probs = plain._softmax(mm(hs.reshape(-1, hs.shape[-1]), p["router_w"]))
+        order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+        ref_choices.append(order[:, :cfg["num_experts_per_tok"]])
+        return ref_moe(hs, p, cfg, mm)
+
+    formatted = [model.format_with_instruction(t, instruction) for t in texts]
+    ids, lengths = model.tokenizer(formatted, model.global_config.embedding_max_seq_len)
+    dev = model.encoder.device
+    pool_from = np.minimum(model._masked_positions(instruction), lengths)
+    args = [torch.from_numpy(a).to(dev) for a in (ids, lengths, pool_from)]
+    rows = model.encoder.encode_forward(*args)
+    with torch.inference_mode(), mock.patch.object(moe, "moe_route", recorded_route):
+        model.encoder.run(*args)
+    with mock.patch.object(plain, "_moe", recorded_moe):
+        ref_rows = plain.encode(config, weights, [plain.format_query(config, instruction, t) for t in texts], dev)
+    real = (torch.arange(ids.shape[1], device=dev)[None, :] < args[1][:, None]).reshape(-1)
+    shares = []
+    for got, want in zip(port_choices, ref_choices):
+        g, w = got[real].long(), want[real]
+        kept = (g[:, :, None] == w[:, None, :]).any(-1).sum().item()
+        shares.append(1.0 - kept / g.numel())
+    return {"rows_l2_vs_reference": torch.linalg.vector_norm(rows - ref_rows, dim=-1).max().item(),
+            "flip_share_by_layer": shares, "flip_share": float(np.mean(shares)),
+            "real_tokens": int(real.sum()), "texts": len(texts)}
+
+
+def phase12_moe(device):
+    """GritLM-8x7B's mixture-of-experts kernels on the card: each held to
+    its plain version at the cell's forwards and published widths and at a
+    ragged shape that leaves one expert with no rows, eager and inside a
+    traced CUDA-graph replay; each timed against its plain version and its
+    least time; the cell's 16 published layers' forward through the kernels
+    against the forward through the plain versions and against the float32
+    reference (rows and the share of expert choices that differ); and the
+    ``retrieve/embed`` span's counters. Returns (record, the four kernels'
+    entries of the ``kernels`` line)."""
+    from hipporag_tpu_torch.embedding import gritlm_encoder as grit
+    from hipporag_tpu_torch.ops import moe
+    from perfbench.encoders import gritlm as grit_bench
+    from perfbench.reference.encoders import gritlm as plain
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device).manual_seed(12)
+    d, f, n_exp = MOE_WIDTHS["d"], MOE_WIDTHS["f"], MOE_WIDTHS["experts"]
+    gate, up = ((0.02 * torch.randn(n_exp, d, f, generator=gen, device=device)).to(torch.bfloat16) for _ in range(2))
+    down = (0.02 * torch.randn(n_exp, f, d, generator=gen, device=device)).to(torch.bfloat16)
+    kernels = {op: getattr(moe, op) for op in MOE_OPS}
+    plain_ops = {op: getattr(moe, op + "_plain") for op in MOE_OPS}
+    rec = {"checks": {}, "ops": {}, "forwards": {}}
+    for (b, l), empty in [(s, None) for s in MOE_SHAPES] + [(MOE_RAGGED, MOE_EMPTY_EXPERT)]:
+        tag = f"{b}x{l}" + ("" if empty is None else f".expert{empty}_empty")
+        y, lengths, logits = moe_inputs(b, l, device, gen, empty)
+        stats = {k: torch.zeros(2, dtype=torch.int64, device=device) for k in ("kernel", "plain", "graph")}
+        want = moe_block(plain_ops, y, lengths, logits, gate, up, down, stats["plain"])
+        got = moe_block(kernels, y, lengths, logits, gate, up, down, stats["kernel"])
+        sync()
+        rec["checks"][tag + ".eager"] = moe_held(tag + " eager", got, want, stats["kernel"], stats["plain"])
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe_block(kernels, y, lengths, logits, gate, up, down)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = moe_block(kernels, y, lengths, logits, gate, up, down, stats["graph"])
+        _total, launched = moe_kernels_in_replay(graph)  # three replays, each adding to the graph's counter
+        check(all(launched[op] == 1 for op in MOE_OPS), f"{tag}: a replay launched {launched}")
+        rec["checks"][tag + ".replay"] = moe_held(tag + " replay", replayed, want, stats["graph"] // 3,
+                                                  stats["plain"])
+        if empty is not None:
+            check(rec["checks"][tag + ".eager"]["empty_experts"] >= 1, f"{tag}: no expert was left empty")
+        else:
+            rec["ops"][f"{b}x{l}"] = moe_timed(kernels, plain_ops, (y, lengths, logits, gate, up, down), b, l, want[0])
+        del graph, replayed, got, want
+        torch.cuda.empty_cache()
+    log("phase 12: kernels against plain versions: " + json.dumps(rec["checks"]))
+    log("phase 12: kernel and plain times: " + json.dumps(rec["ops"]))
+    del gate, up, down
+    torch.cuda.empty_cache()
+
+    config = grit_bench.cell_config()
+    t1 = time.perf_counter()
+    weights = plain.weights(config, MOE_SEED, device)
+    cfg = BaseConfig(embedding_model_name=grit_bench.embedding_name(config), embedding_model_dtype="bfloat16",
+                     embedding_batch_size=16, embedding_max_seq_len=config["max_position_embeddings"])
+    model = grit.GritLMDeviceEmbeddingModel(cfg, device, params=weights)
+    log(f"phase 12: the cell's {len(model.encoder.layers)} layers drawn in {time.perf_counter() - t1:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    for b, l in MOE_SHAPES:
+        rec["forwards"][f"{b}x{l}"] = moe_forward(model, b, l)
+        log(f"phase 12 forward {b}x{l}: " + json.dumps(rec["forwards"][f"{b}x{l}"]))
+    rng = np.random.default_rng(12)
+    texts = [" ".join(f"w{rng.integers(1 << 20)}" for _ in range(4 + i % 7)) for i in range(16)]
+    instruction = "Given a question, retrieve triplet facts that match it."
+    rec["reference"] = moe_against_reference(model, weights, config, texts, instruction)
+    log("phase 12 against the float32 reference: " + json.dumps(rec["reference"]))
+    with recording() as rec_spans:
+        with span("retrieve/embed"):
+            model.batch_encode(texts + texts[:7], instruction=instruction, norm=True)
+    (embed,) = [s for s in rec_spans.spans() if s.name == "retrieve/embed"]
+    layers = len(model.encoder.layers)
+    a = embed.attrs
+    check(a["moe_kernels"] == 4 * layers * a["forwards"] and a["fused_kernels"] == 6 * layers * a["forwards"]
+          and a["routed"] == 2 * layers * a["tokens"] and layers * a["tokens"] // 4 <= a["expert_rows_max"]
+          <= a["routed"], f"retrieve/embed: {a}")
+    rec["retrieve_embed"] = dict(a)
+    rec["wall_s"] = time.perf_counter() - t0
+    del model, weights
+    torch.cuda.empty_cache()
+    entries = []
+    for op in MOE_OPS:
+        entry = {"name": op, "route": "cuda (triton)", "source": "hipporag_tpu_torch/ops/moe.py",
+                 "replaces": "none: the JAX package has no mixture of experts",
+                 "launches_by_path": {
+                     **{f"forward_{s}_{how}": fw[f"launches_{how}"][op]
+                        for s, fw in rec["forwards"].items() for how in ("eager", "replayed")},
+                     "retrieve_embed_all_moe_kernels": {k: rec["retrieve_embed"][k] for k in ("forwards",
+                                                                                               "moe_kernels")}}}
+        for b, l in MOE_SHAPES:
+            t = rec["ops"][f"{b}x{l}"][op]
+            suffix = "" if (b, l) == MOE_SHAPES[-1] else f"_{b}x{l}"
+            entry.update({f"ms{suffix}": t["us"] / 1e3, f"plain_eager_ms{suffix}": t["plain_eager_us"] / 1e3,
+                          f"bound_ms{suffix}": t["bound_us"] / 1e3, f"bound_by{suffix}": t["bound_by"]})
+        entries.append(entry)
+    return rec, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2869,7 +3247,11 @@ def main() -> int:
     log(f"phase 11 summary on {smi}: " + json.dumps({
         "wall_s": time.perf_counter() - t0, "build_s": p11["build_s"], "forwards": p11["forwards"],
         "retrieve_embed": p11["retrieve_embed"]}))
-    log(f"chip_smoke: phases 1-11 passed in {time.perf_counter() - run_start:.1f} s")
+    p12, moe_kernels = phase12_moe(device)
+    log(f"phase 12 summary on {smi}: " + json.dumps({
+        "wall_s": p12["wall_s"], "forwards": p12["forwards"], "reference": p12["reference"],
+        "retrieve_embed": p12["retrieve_embed"]}))
+    log(f"chip_smoke: phases 1-12 passed in {time.perf_counter() - run_start:.1f} s")
 
     f32, bf16 = big["f32"], big["bf16"]
     kernels = [{
@@ -2912,7 +3294,7 @@ def main() -> int:
         "replaces": "none: the JAX package's ELL step is XLA (hipporag_tpu/ops/pagerank.py _spmv_ell)",
         "launches_by_path": K2_PATHS,
         **{f"{tag}_b128": rec["timing_b128"] for tag, rec in p10.items()},
-    }, *nv_kernels]
+    }, *nv_kernels, *moe_kernels]
     stray = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hipporag_tpu"))
     check(not stray, f"the port imported {stray[:5]}")
     log(json.dumps({"kernels": kernels}))

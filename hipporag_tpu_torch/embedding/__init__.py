@@ -8,6 +8,8 @@ the port's encoder on the given torch device, so one configuration drives
 both packages. ``NV-Embed-v2/random[-<key>=<value>,...]`` names go to the
 port's on-device NV-Embed-v2 with weights drawn from a seed
 (``nvembed_encoder.py``); other NV-Embed-v2 names load a checkpoint.
+``GritLM/random[-<key>=<value>,...]`` names go to the port's on-device
+GritLM-8x7B (``gritlm_encoder.py``); other GritLM names load a checkpoint.
 """
 
 from __future__ import annotations
@@ -52,6 +54,10 @@ def get_embedding_model(config: BaseConfig, device: Union[str, torch.device] = "
         from .nvembed import NVEmbedV2EmbeddingModel
 
         return NVEmbedV2EmbeddingModel(config)
+    if name == "GritLM/random" or name.startswith("GritLM/random-"):
+        from .gritlm_encoder import GritLMDeviceEmbeddingModel
+
+        return GritLMDeviceEmbeddingModel(config, device=device)
     if "GritLM" in name:
         from .gritlm_embed import GritLMEmbeddingModel
 

@@ -39,6 +39,16 @@ def l2_normalize(x: np.ndarray, axis: int = -1, eps: float = 1e-12) -> np.ndarra
     return x / np.maximum(norm, eps)
 
 
+class TextBatch(list):
+    """One batch of instruction-formatted texts, as ``batch_encode`` hands it
+    to ``_encode_batch``, with the ``instruction`` they were formatted under:
+    an encoder whose pooling depends on the instruction reads it here."""
+
+    def __init__(self, texts, instruction: str = ""):
+        super().__init__(texts)
+        self.instruction = instruction
+
+
 class BaseEmbeddingModel(ABC):
     def __init__(self, global_config: Optional[BaseConfig] = None):
         self.global_config = global_config or BaseConfig()
@@ -128,7 +138,7 @@ class BaseEmbeddingModel(ABC):
                 # after every batch is dispatched, so host-side
                 # tokenization of batch i+1 overlaps device compute of
                 # batch i instead of blocking on its transfer
-                computed.append(self._encode_batch([prefixed[i] for i in batch_idx]))
+                computed.append(self._encode_batch(TextBatch([prefixed[i] for i in batch_idx], instruction)))
             computed_arr = np.concatenate(
                 [np.asarray(c) for c in computed], axis=0
             ).astype(np.float32, copy=False)

@@ -49,6 +49,13 @@ computed once per set of weights, when the model is built (the published
 code repeats the latents per text and projects them in every forward: the
 same products on the same operands), and held as product operands.
 
+The decoder's forward (:func:`_decoder`: attention, the element-wise ops
+and the final norm, with the second block's product handed in), its CUDA
+graphs (:class:`DecoderEncoder`), the mean pooling, the hashing tokenizer
+and the embedding model's batching and spans (:class:`DecoderEmbeddingModel`)
+are shared with GritLM's encoder (``gritlm_encoder.py``), whose second
+block is a mixture of experts.
+
 Selected by the embedding name ``NV-Embed-v2/random`` (the published sizes)
 or ``NV-Embed-v2/random-<key>=<value>,...`` (sizes by their Hugging Face
 names, and ``seed``): weights drawn on the device from the seed, and a
@@ -70,7 +77,7 @@ from torch import nn
 from ..ops._kernels import LaunchCounter, load
 from ..utils.precision import full_f32
 from ..utils.timing import count
-from .base import BaseEmbeddingModel
+from .base import BaseEmbeddingModel, TextBatch
 from .encoder import _HostArray, _matmul, _operand, torch_dtype
 
 ROUTE = "NV-Embed-v2/random"
@@ -85,27 +92,39 @@ BOS, EOS = 1, 2
 _FIRST_WORD_ID = 3  # above <unk>, <s> and </s>
 
 
-def parse_name(name: str) -> tuple:
-    """(sizes, seed) of an embedding name ``NV-Embed-v2/random[-k=v,...]``."""
-    if name != ROUTE and not name.startswith(ROUTE + "-"):
-        raise ValueError(f"not an NV-Embed-v2 random route: {name!r}")
-    sizes, seed = dict(PUBLISHED), 0
-    for item in filter(None, name[len(ROUTE) + 1:].split(",")):
+def parse_route(name: str, route: str, published: Dict) -> tuple:
+    """(sizes, seed) of an embedding name ``<route>[-k=v,...]``: the
+    ``published`` sizes with those the name gives by their Hugging Face
+    names, and ``seed`` (0 when not given)."""
+    if name != route and not name.startswith(route + "-"):
+        raise ValueError(f"not a {route} route: {name!r}")
+    sizes, seed = dict(published), 0
+    for item in filter(None, name[len(route) + 1:].split(",")):
         key, _, value = item.partition("=")
         if key == "seed":
             seed = int(value)
         elif key in sizes:
-            sizes[key] = type(PUBLISHED[key])(value)
+            sizes[key] = type(published[key])(value)
         else:
             raise ValueError(f"{name!r}: no size {key!r}")
     return sizes, seed
 
 
+def format_route(route: str, published: Dict, sizes: Dict, seed: int = 0) -> str:
+    """The embedding name under ``route`` that builds ``sizes`` with weights from ``seed``."""
+    items = [f"{k}={sizes[k]}" for k in published if sizes[k] != published[k]]
+    items += [f"seed={seed}"] if seed else []
+    return route + ("-" + ",".join(items) if items else "")
+
+
+def parse_name(name: str) -> tuple:
+    """(sizes, seed) of an embedding name ``NV-Embed-v2/random[-k=v,...]``."""
+    return parse_route(name, ROUTE, PUBLISHED)
+
+
 def route_name(sizes: Dict, seed: int = 0) -> str:
     """The embedding name that builds ``sizes`` with weights from ``seed``."""
-    items = [f"{k}={sizes[k]}" for k in PUBLISHED if sizes[k] != PUBLISHED[k]]
-    items += [f"seed={seed}"] if seed else []
-    return ROUTE + ("-" + ",".join(items) if items else "")
+    return format_route(ROUTE, PUBLISHED, sizes, seed)
 
 
 # ----------------------------------------------------------------------
@@ -127,11 +146,12 @@ def param_shapes(sizes: Dict) -> Dict:
             "ff_out_w": (wide, d), "ff_out_b": (d,)}
 
 
-def params_random(sizes: Dict, seed: int = 0, device: Union[str, torch.device] = "cpu",
-                  dtype: torch.dtype = torch.bfloat16) -> Dict:
-    """Random weights drawn on ``device`` in ``dtype``, one leaf at a time:
-    linears and the embedding N(0, 0.02), latents N(0, 1) (their
-    published initialisation), norm scales 1 and biases 0."""
+def draw_leaves(shapes: Dict, seed: int = 0, device: Union[str, torch.device] = "cpu",
+                dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """Random weights of the leaves ``shapes`` (a dict whose ``layers`` is a
+    list of dicts), drawn on ``device`` in ``dtype`` one leaf at a time:
+    linears and the embedding N(0, 0.02), latents N(0, 1) (their published
+    initialisation), norm scales 1 and biases 0."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
 
@@ -143,10 +163,15 @@ def params_random(sizes: Dict, seed: int = 0, device: Union[str, torch.device] =
         scale = 1.0 if name == "latents" else 0.02
         return torch.randn(shape, generator=gen, device=device, dtype=dtype).mul_(scale)
 
-    shapes = param_shapes(sizes)
     out = {k: leaf(k, v) for k, v in shapes.items() if k != "layers"}
     out["layers"] = [{k: leaf(k, v) for k, v in layer.items()} for layer in shapes["layers"]]
     return out
+
+
+def params_random(sizes: Dict, seed: int = 0, device: Union[str, torch.device] = "cpu",
+                  dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """NV-Embed-v2's weights drawn from ``seed`` (:func:`draw_leaves`)."""
+    return draw_leaves(param_shapes(sizes), seed, device, dtype)
 
 
 def _leaf(x, device) -> torch.Tensor:
@@ -411,11 +436,12 @@ def _geglu(x: torch.Tensor, enc: "NVEmbedV2Encoder") -> torch.Tensor:
     return x + _dense(a * F.gelu(gate), enc.ff_out_w, enc.dtype) + enc.ff_out_b
 
 
-def _forward(enc: "NVEmbedV2Encoder", ids: torch.Tensor, lengths: torch.Tensor,
-             pool_from: torch.Tensor) -> torch.Tensor:
-    """Right-padded ids [B, L], real lengths [B] and the first pooled
-    position [B] -> unit rows [B, D] (float32). The residual ``x`` [B * L,
-    D] takes each block's product in the next block's :func:`add_rms_norm`."""
+def _decoder(enc: "DecoderEncoder", ids: torch.Tensor, lengths: torch.Tensor, mlp) -> torch.Tensor:
+    """Right-padded ids [B, L] and real lengths [B] -> the decoder's last
+    hidden states after the final RMSNorm [B, L, D] (float32). The residual
+    ``x`` [B * L, D] takes each block's product in the next block's
+    :func:`add_rms_norm`; ``mlp(y, layer, enc)`` is the second block's
+    product [B * L, D] from its normed operand ``y``."""
     b, l = ids.shape
     cos, sin = enc.rope_tables(l)
     x = F.embedding(ids, enc.embed).float().view(b * l, -1)
@@ -423,15 +449,27 @@ def _forward(enc: "NVEmbedV2Encoder", ids: torch.Tensor, lengths: torch.Tensor,
     for layer in enc.layers:
         attn = _self_attention(add_rms_norm(x, delta, layer.attn_norm, enc.eps, enc.dtype), lengths, layer, enc,
                                cos, sin)
-        delta = _mlp(add_rms_norm(x, attn, layer.mlp_norm, enc.eps, enc.dtype), layer, enc)
+        delta = mlp(add_rms_norm(x, attn, layer.mlp_norm, enc.eps, enc.dtype), layer, enc)
     if delta is not None:
         x.add_(delta)
-    x = _rms_norm(x.view(b, l, -1), enc.norm, enc.eps)
-    x = _geglu(_latent_attention(x, enc), enc)
-    pos = torch.arange(l, device=ids.device)
+    return _rms_norm(x.view(b, l, -1), enc.norm, enc.eps)
+
+
+def _mean_pool(x: torch.Tensor, lengths: torch.Tensor, pool_from: torch.Tensor) -> torch.Tensor:
+    """Unit rows [B, D]: the mean of ``x`` [B, L, D] over the positions
+    ``pool_from[b] <= p < lengths[b]``, then an L2 norm."""
+    pos = torch.arange(x.shape[1], device=x.device)
     pool = ((pos[None, :] < lengths[:, None]) & (pos[None, :] >= pool_from[:, None]))[..., None].float()
     pooled = (x * pool).sum(1) / pool.sum(1).clamp_min(1.0)
     return pooled / torch.linalg.vector_norm(pooled, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def _forward(enc: "NVEmbedV2Encoder", ids: torch.Tensor, lengths: torch.Tensor,
+             pool_from: torch.Tensor) -> torch.Tensor:
+    """Right-padded ids [B, L], real lengths [B] and the first pooled
+    position [B] -> unit rows [B, D] (float32)."""
+    x = _decoder(enc, ids, lengths, _mlp)
+    return _mean_pool(_geglu(_latent_attention(x, enc), enc), lengths, pool_from)
 
 
 class DecoderLayer(nn.Module):
@@ -448,43 +486,25 @@ class DecoderLayer(nn.Module):
         self.register_buffer("down_w", _weight(layer["down_w"], dtype, device))
 
 
-class NVEmbedV2Encoder(nn.Module):
-    """NV-Embed-v2's weights on one device in the form the forward uses.
+class DecoderEncoder(nn.Module):
+    """What a decoder encoder on one device shares, whatever its last
+    block: the attention's sizes, the rotary tables, and the forward of each
+    shape [B, L] captured once as a CUDA graph and replayed on CUDA.
+    ``LAUNCH_COUNTERS`` names the hand-written kernels a replay is counted
+    in, each with the function that gives its launches so far in this
+    process."""
 
-    ``params`` has the leaves of :func:`param_shapes` (numpy or torch, any
-    float type). Linear weights become product operands, the embedding
-    keeps its type (its rows are read in float32), norms and biases
-    are float32, and the latents' keys and values are computed here once.
-    """
+    LAUNCH_COUNTERS = {"fused_kernels": layer_kernel_launches}
 
-    def __init__(self, params: Dict, sizes: Dict, compute_dtype: str = "bfloat16",
-                 device: Union[str, torch.device] = "cuda"):
+    def __init__(self, sizes: Dict, compute_dtype: str, device: torch.device):
         super().__init__()
-        device = torch.device(device)
         self.compute_dtype = compute_dtype
-        self.dtype = dtype = torch_dtype(compute_dtype)
+        self.dtype = torch_dtype(compute_dtype)
         self.heads, self.kv_heads = int(sizes["num_attention_heads"]), int(sizes["num_key_value_heads"])
         self.head_dim = int(sizes["head_dim"])
-        self.cross_heads, self.cross_dim_head = int(sizes["num_cross_heads"]), int(sizes["cross_dim_head"])
         self.eps = float(sizes["rms_norm_eps"])
         if self.heads % self.kv_heads:
             raise ValueError(f"{self.heads} query heads do not share {self.kv_heads} key/value heads evenly")
-        for key, shape in param_shapes(sizes).items():
-            if key != "layers" and tuple(params[key].shape) != tuple(shape):
-                raise ValueError(f"{key}: shape {tuple(params[key].shape)}, the sizes give {shape}")
-        self.register_buffer("embed", _leaf(params["embed"], device))
-        self.layers = nn.ModuleList(DecoderLayer(p, dtype, device) for p in params["layers"])
-        for name in ("norm", "q_ln_s", "q_ln_b", "ff_ln_s", "ff_ln_b", "ff_in_b", "ff_out_b"):
-            self.register_buffer(name, _vector(params[name], device))
-        for name in ("to_q_w", "to_out_w", "ff_in_w", "ff_out_w"):
-            self.register_buffer(name, _weight(params[name], dtype, device))
-        with torch.inference_mode(), full_f32():
-            latents = _layer_norm(_vector(params["latents"], device), _vector(params["lat_ln_s"], device),
-                                  _vector(params["lat_ln_b"], device))
-            kv = _dense(latents, _weight(params["to_kv_w"], dtype, device), dtype)
-            for name, t in zip(("lat_k", "lat_v"), kv.chunk(2, dim=-1)):  # [heads, latents, cross_dim_head]
-                t = t.reshape(latents.shape[0], self.cross_heads, self.cross_dim_head).transpose(0, 1)
-                self.register_buffer(name, _operand(t.contiguous(), dtype))
         # Mistral's rotary frequencies, computed in float32 as its code computes them
         self.register_buffer("inv_freq", 1.0 / float(sizes["rope_theta"]) ** (
             torch.arange(0, self.head_dim, 2, device=device).float() / self.head_dim))
@@ -499,6 +519,10 @@ class NVEmbedV2Encoder(nn.Module):
     @property
     def dim(self) -> int:
         return int(self.norm.shape[0])
+
+    def run(self, ids: torch.Tensor, lengths: torch.Tensor, pool_from: torch.Tensor) -> torch.Tensor:
+        """One forward, eager: unit rows [B, D] (float32)."""
+        raise NotImplementedError
 
     def rope_tables(self, length: int) -> tuple:
         """(cos, signed sin) [length, 1, head_dim] in float32 for positions
@@ -515,10 +539,10 @@ class NVEmbedV2Encoder(nn.Module):
     def encode_forward(self, ids: torch.Tensor, lengths: torch.Tensor, pool_from: torch.Tensor) -> torch.Tensor:
         """Unit rows [B, D] (float32) of right-padded ``ids`` [B, L]. On
         CUDA the forward of each shape [B, L] is captured once as a CUDA
-        graph and replayed: a forward launches some 430-460 kernels, which
+        graph and replayed: a forward launches hundreds of kernels, which
         the host could not launch as fast as the card runs them."""
         if not ids.is_cuda:
-            return _forward(self, ids, lengths, pool_from)
+            return self.run(ids, lengths, pool_from)
         graph = self._graphs.get(tuple(ids.shape))
         if graph is None:
             graph = self._graphs[tuple(ids.shape)] = self._capture(ids, lengths, pool_from)
@@ -528,30 +552,71 @@ class NVEmbedV2Encoder(nn.Module):
         graph.replay()
         return out.clone()  # the graph's next replay overwrites ``out``
 
+    def launches(self, shape: tuple) -> Dict[str, int]:
+        """Launches of each of ``LAUNCH_COUNTERS``' kernels in one replay of
+        the forward of ``shape`` [B, L], as counted when it was captured; 0
+        off CUDA, where the forward runs the plain torch ops."""
+        graph = self._graphs.get(tuple(shape))
+        return dict(graph[3]) if graph is not None else dict.fromkeys(self.LAUNCH_COUNTERS, 0)
+
     def fused_launches(self, shape: tuple) -> int:
         """Launches of the layer kernels (csrc/nvembed_layer.cu) in one
-        replay of the forward of ``shape`` [B, L], as counted when it was
-        captured; 0 off CUDA, where the forward runs the plain torch ops."""
-        graph = self._graphs.get(tuple(shape))
-        return graph[3] if graph is not None else 0
+        replay of the forward of ``shape`` (:meth:`launches`)."""
+        return self.launches(shape)["fused_kernels"]
 
     def _capture(self, *inputs) -> tuple:
-        """(graph, its input tensors, its output, the layer kernels'
-        launches it holds) of one forward of the inputs' shapes. The graphs
-        share one memory pool: they replay one at a time on one stream."""
+        """(graph, its input tensors, its output, {counter: launches it
+        holds}) of one forward of the inputs' shapes. The graphs share one
+        memory pool: they replay one at a time on one stream."""
         inputs = tuple(t.clone() for t in inputs)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):  # an eager forward first, as capture asks (it also fills the RoPE tables)
-            _forward(self, *inputs)
+            self.run(*inputs)
         torch.cuda.current_stream(self.device).wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        before = layer_kernel_launches()
+        before = {name: launched() for name, launched in self.LAUNCH_COUNTERS.items()}
         with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-            out = _forward(self, *inputs)
-        return graph, inputs, out, layer_kernel_launches() - before
+            out = self.run(*inputs)
+        return graph, inputs, out, {name: launched() - before[name] for name, launched in self.LAUNCH_COUNTERS.items()}
+
+
+class NVEmbedV2Encoder(DecoderEncoder):
+    """NV-Embed-v2's weights on one device in the form the forward uses.
+
+    ``params`` has the leaves of :func:`param_shapes` (numpy or torch, any
+    float type). Linear weights become product operands, the embedding
+    keeps its type (its rows are read in float32), norms and biases
+    are float32, and the latents' keys and values are computed here once.
+    """
+
+    def __init__(self, params: Dict, sizes: Dict, compute_dtype: str = "bfloat16",
+                 device: Union[str, torch.device] = "cuda"):
+        device = torch.device(device)
+        super().__init__(sizes, compute_dtype, device)
+        dtype = self.dtype
+        self.cross_heads, self.cross_dim_head = int(sizes["num_cross_heads"]), int(sizes["cross_dim_head"])
+        for key, shape in param_shapes(sizes).items():
+            if key != "layers" and tuple(params[key].shape) != tuple(shape):
+                raise ValueError(f"{key}: shape {tuple(params[key].shape)}, the sizes give {shape}")
+        self.register_buffer("embed", _leaf(params["embed"], device))
+        self.layers = nn.ModuleList(DecoderLayer(p, dtype, device) for p in params["layers"])
+        for name in ("norm", "q_ln_s", "q_ln_b", "ff_ln_s", "ff_ln_b", "ff_in_b", "ff_out_b"):
+            self.register_buffer(name, _vector(params[name], device))
+        for name in ("to_q_w", "to_out_w", "ff_in_w", "ff_out_w"):
+            self.register_buffer(name, _weight(params[name], dtype, device))
+        with torch.inference_mode(), full_f32():
+            latents = _layer_norm(_vector(params["latents"], device), _vector(params["lat_ln_s"], device),
+                                  _vector(params["lat_ln_b"], device))
+            kv = _dense(latents, _weight(params["to_kv_w"], dtype, device), dtype)
+            for name, t in zip(("lat_k", "lat_v"), kv.chunk(2, dim=-1)):  # [heads, latents, cross_dim_head]
+                t = t.reshape(latents.shape[0], self.cross_heads, self.cross_dim_head).transpose(0, 1)
+                self.register_buffer(name, _operand(t.contiguous(), dtype))
+
+    def run(self, ids: torch.Tensor, lengths: torch.Tensor, pool_from: torch.Tensor) -> torch.Tensor:
+        return _forward(self, ids, lengths, pool_from)
 
 
 # ----------------------------------------------------------------------
@@ -560,11 +625,12 @@ class NVEmbedV2Encoder(nn.Module):
 class HashTokenizer:
     """Words split at white space, case kept; a word's id is 3 plus the
     first six hex digits of its MD5 digest modulo ``vocab - 3`` (above
-    ``<unk>`` 0, BOS 1 and EOS 2). A text reads BOS, its words and EOS, at
-    most ``max_length`` ids."""
+    ``<unk>`` 0, BOS 1 and EOS 2). A text reads BOS, its words and, with
+    ``eos``, EOS, at most ``max_length`` ids."""
 
-    def __init__(self, vocab: int = 32000):
+    def __init__(self, vocab: int = 32000, eos: bool = True):
         self.vocab = int(vocab)
+        self.eos = bool(eos)
         self._memo: Dict[str, int] = {}
 
     def _word_id(self, w: str) -> int:
@@ -580,7 +646,8 @@ class HashTokenizer:
 
     def __call__(self, texts: List[str], max_length: int):
         """(ids [B, L] int64, lengths [B] int64), right-padded with 0."""
-        rows = [[BOS] + self.tokenize(t)[: max_length - 2] + [EOS] for t in texts]
+        end = [EOS] if self.eos else []
+        rows = [[BOS] + self.tokenize(t)[: max_length - 1 - len(end)] + end for t in texts]
         lengths = np.array([len(r) for r in rows], np.int64)
         ids = np.zeros((len(rows), int(lengths.max())), np.int64)
         for i, r in enumerate(rows):
@@ -588,62 +655,76 @@ class HashTokenizer:
         return ids, lengths
 
 
-class NVEmbedV2DeviceEmbeddingModel(BaseEmbeddingModel):
-    """``NV-Embed-v2/random[-k=v,...]`` on a torch device.
+class DecoderEmbeddingModel(BaseEmbeddingModel):
+    """A decoder encoder with weights drawn from a seed, on a torch device,
+    behind ``batch_encode``: ``ENCODER`` built from ``params`` when given
+    (the leaves of the module's ``param_shapes``, adopted without a copy
+    where they already are operands on the device), else from
+    ``draw(sizes, seed, device, dtype)`` of the name's seed; a hashing
+    tokenizer (EOS appended with ``EOS``). A batch is padded to its longest
+    text. Each forward adds ``texts``, ``tokens`` (real positions, BOS and
+    any EOS included), ``pooled``, ``padded_tokens`` (positions computed),
+    ``forwards`` and the launches of each of the encoder's
+    ``LAUNCH_COUNTERS`` the forward replayed (0 on the CPU) to the open span
+    (``retrieve/embed`` on the query path)."""
 
-    Weights are ``params`` when given (the leaves of :func:`param_shapes`,
-    adopted without a copy where they already are operands on the device),
-    else drawn on the device from the name's seed. A batch is padded to its
-    longest text. Each forward adds ``texts``, ``tokens`` (real positions,
-    BOS and EOS included), ``pooled``, ``padded_tokens`` (positions
-    computed), ``forwards`` and ``fused_kernels`` (the layer kernels' launches
-    the forward replayed; 0 on the CPU) to the open span (``retrieve/embed``
-    on the query path)."""
+    ENCODER = DecoderEncoder
+    EOS = True
 
-    def __init__(self, global_config=None, device: Union[str, torch.device] = "cuda", params: Optional[Dict] = None):
+    def __init__(self, global_config, device: Union[str, torch.device], params: Optional[Dict], parse, draw):
         super().__init__(global_config)
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device} requested but CUDA is not available")
-        sizes, seed = parse_name(self.global_config.embedding_model_name)
+        sizes, seed = parse(self.global_config.embedding_model_name)
         self.compute_dtype = (
             "bfloat16" if self.global_config.embedding_model_dtype in ("auto", "bfloat16") else "float32"
         )
         if params is None:
-            params = params_random(sizes, seed, device, torch_dtype(self.compute_dtype))
-        self.encoder = NVEmbedV2Encoder(params, sizes, self.compute_dtype, device)
+            params = draw(sizes, seed, device, torch_dtype(self.compute_dtype))
+        self.encoder = self.ENCODER(params, sizes, self.compute_dtype, device)
         del params
-        self.tokenizer = HashTokenizer(sizes["vocab_size"])
+        self.tokenizer = HashTokenizer(sizes["vocab_size"], eos=self.EOS)
         self.embedding_dim = self.encoder.dim
         self.device = device
-        self._pool_from = 0
-
-    def batch_encode(self, texts, instruction: str = "", norm=None) -> np.ndarray:
-        """The base class's cached batch encoding; the instruction's prefix
-        positions are left out of the mean, as NV-Embed-v2's ``encode``
-        leaves them out."""
-        self._pool_from = self._masked_positions(instruction)
-        try:
-            with full_f32():
-                return super().batch_encode(texts, instruction, norm)
-        finally:
-            self._pool_from = 0
 
     def _masked_positions(self, instruction: str) -> int:
-        """How many leading positions the mean leaves out: the tokens of the
-        instruction's prefix (the module's docstring)."""
-        return len(self.tokenizer.tokenize(self.format_with_instruction("", instruction)))
+        """How many leading positions the mean leaves out of a text formed
+        under ``instruction``."""
+        raise NotImplementedError
 
     def _encode_batch(self, texts: List[str]) -> _HostArray:
+        """``texts`` formed under ``texts.instruction`` (a
+        :class:`~.base.TextBatch`; a plain list reads as no instruction):
+        their first :meth:`_masked_positions` positions are left out of the
+        mean."""
+        instruction = texts.instruction if isinstance(texts, TextBatch) else ""
         ids, lengths = self.tokenizer(texts, self.global_config.embedding_max_seq_len)
-        pool_from = np.minimum(self._pool_from, lengths)
+        pool_from = np.minimum(self._masked_positions(instruction), lengths)
         count("texts", len(texts))
         count("tokens", int(lengths.sum()))
         count("pooled", int((lengths - pool_from).sum()))
         count("padded_tokens", int(ids.size))
         count("forwards", 1)
         dev = self.encoder.device
-        out = self.encoder.encode_forward(torch.from_numpy(ids).to(dev), torch.from_numpy(lengths).to(dev),
-                                          torch.from_numpy(pool_from).to(dev))
-        count("fused_kernels", self.encoder.fused_launches(ids.shape))
+        with full_f32():
+            out = self.encoder.encode_forward(torch.from_numpy(ids).to(dev), torch.from_numpy(lengths).to(dev),
+                                              torch.from_numpy(pool_from).to(dev))
+        for name, launched in self.encoder.launches(ids.shape).items():
+            count(name, launched)
         return _HostArray(out)
+
+
+class NVEmbedV2DeviceEmbeddingModel(DecoderEmbeddingModel):
+    """``NV-Embed-v2/random[-k=v,...]`` on a torch device
+    (:class:`DecoderEmbeddingModel`); its spans count ``fused_kernels``."""
+
+    ENCODER = NVEmbedV2Encoder
+
+    def __init__(self, global_config=None, device: Union[str, torch.device] = "cuda", params: Optional[Dict] = None):
+        super().__init__(global_config, device, params, parse_name, params_random)
+
+    def _masked_positions(self, instruction: str) -> int:
+        """The tokens of the instruction's prefix, as NV-Embed-v2's ``encode``
+        leaves them out (the module's docstring)."""
+        return len(self.tokenizer.tokenize(self.format_with_instruction("", instruction)))

@@ -15,7 +15,9 @@ exported trace keeps (``baseTimeNanoseconds`` + ``ts`` in microseconds).
 A span's parent is the innermost span open on its thread, or the
 ``parent`` it is given (a stage run on a worker thread for its call); its
 call id is the span id of its root. ``count(key, n)`` adds ``n`` to the
-innermost open span's ``attrs[key]``. Nothing is written to disk.
+innermost open span's ``attrs[key]``; ``on_close(key, start)`` adds counts
+that are read once, when that span closes (a device counter accumulated
+over the span). Nothing is written to disk.
 """
 
 from __future__ import annotations
@@ -95,10 +97,11 @@ def _stack() -> list:
 
 
 class _OpenSpan:
-    __slots__ = ("name", "attrs", "parent", "span_id", "parent_id", "call_id", "start_ns", "_range")
+    __slots__ = ("name", "attrs", "parent", "span_id", "parent_id", "call_id", "start_ns", "_range", "closers")
 
     def __init__(self, name: str, parent, attrs: dict):
         self.name, self.parent, self.attrs = name, parent, attrs
+        self.closers = {}
 
     def __enter__(self):
         stack = _stack()
@@ -124,6 +127,9 @@ class _OpenSpan:
         if self._range is not None:
             self._range.__exit__(None, None, None)
             end_ns = (end_ns + time.time_ns()) // 2
+        for read in self.closers.values():
+            for key, n in read().items():
+                self.attrs[key] = self.attrs.get(key, 0) + n
         record = Span(self.name, self.span_id, self.parent_id, self.call_id, self.start_ns, end_ns, self.attrs)
         with _lock:
             if len(_log) == _log.maxlen:
@@ -153,6 +159,18 @@ def count(key: str, n=1) -> None:
     if stack:
         attrs = stack[-1].attrs
         attrs[key] = attrs.get(key, 0) + n
+
+
+def on_close(key: str, start) -> None:
+    """While spans are recorded, once per ``key`` for the innermost span open
+    on this thread: call ``start()`` now; the function it returns is called
+    when the span closes (after its end is timed) and gives ``{counter: n}``
+    to add to the span's attrs."""
+    if not (_recording or _autograd_profiler._is_profiler_enabled):
+        return
+    stack = getattr(_local, "stack", None)
+    if stack and key not in stack[-1].closers:
+        stack[-1].closers[key] = start()
 
 
 class Recording:
